@@ -17,6 +17,7 @@ import torch
 from emplanner_carla_tpu_torch import config as cfg_mod
 from emplanner_carla_tpu_torch.control import pid, vehicle
 from emplanner_carla_tpu_torch.sim.closed_loop import LoopCarry
+from emplanner_carla_tpu_torch.sim.traffic_light import TrafficLights
 from emplanner_carla_tpu_torch.types import EgoState, Obstacles, Path
 
 
@@ -66,17 +67,31 @@ def obstacles_from_numpy(o, device="cpu") -> Obstacles:
 def carry_from_numpy(c, device="cpu") -> LoopCarry:
     """LoopCarry from a batched JAX ``closed_loop.LoopCarry``: ego, PID
     state (buffer, count, last error), match index, obstacles, arrival flag
-    and the path-QP warm state (x_s, z, y)."""
+    and the QP warm states (x_s, z, y): the path QP's, and the speed QP's
+    when the carry has one (``simulate_full``)."""
     p = c.ctrl.pid
     ctrl = vehicle.ControllerState(pid.PIDState(
         _t(p.buffer, device, torch.float32), _t(p.count, device, torch.int32),
         _t(p.last_error, device, torch.float32),
     ))
-    qs = tuple(_t(a, device, torch.float32) for a in c.qp_warm[0])
+    qp_warm = tuple(
+        None if st is None else tuple(_t(a, device, torch.float32) for a in st)
+        for st in c.qp_warm
+    )
     return LoopCarry(
         ego_from_numpy(c.ego, device), ctrl,
         _t(c.match_index, device, torch.int32),
         obstacles_from_numpy(c.obstacles, device),
         _t(c.arrived, device, torch.bool),
-        (qs, None),
+        qp_warm,
+    )
+
+
+def lights_from_numpy(tl, device="cpu") -> TrafficLights:
+    """TrafficLights from anything with the six TrafficLights fields, each
+    (B, L)."""
+    return TrafficLights(
+        *(_t(getattr(tl, f), device, torch.float32)
+          for f in TrafficLights._fields[:-1]),
+        _t(tl.valid, device, torch.bool),
     )

@@ -1,11 +1,14 @@
-// One plan cycle's control/plant tick loop (LQR + kinematic bicycle, no
-// traffic lights), all ticks in one kernel.
+// One plan cycle's control/plant tick loop (LQR + kinematic bicycle, with or
+// without traffic lights), all ticks in one kernel.
 //
 // Replaces: emplanner_carla_tpu/ops/tick_pallas.py run_ticks_batched in its
-// LQR / kinematic / TrafficLights.none() branch (dispatched at
-// sim/closed_loop.py:706-746). Semantics: sim/closed_loop._full_ticks_base.
+// LQR / kinematic branch, with its red-light branch (lights=, :211-217,
+// :286-308, :393-401) (dispatched at sim/closed_loop.py:706-746).
+// Semantics: sim/closed_loop._full_ticks_base.
 // Per tick and lane: hat lookup of the planned speed; time-headway ACC cap on
 // the nearest lead in the ego's corridor (heading fallback below 0.5 m/s);
+// with lights, the red stop line's time-headway cap in the same corridor
+// (phase = floored mod of t0 + t_rel + offset by max(period, 1e-3));
 // predicted-pose first-minimum match on the target path; LQR gain-table
 // lerp + curvature feedforward; PID with the 60-deep error buffer and
 // integral separation; arrival / bad-plan brake; kinematic plant with the
@@ -45,7 +48,7 @@ enum {
   F_DT, F_STANDOFF, F_HEADWAY, F_MIN_VX, F_TS, F_TAB_V0, F_TAB_DV, F_A, F_B, F_AB,
   F_BCF, F_ACR, F_CR, F_M, F_MAX_STEER, F_STEER_LIMIT, F_KP, F_KI, F_KD, F_PID_DT,
   F_SEP, F_ARRIVAL, F_MAX_ACCEL, F_MAX_BRAKE, F_TAU_DEN, F_RATE_DT, F_COLL_R,
-  F_COUNT
+  F_STOP_STANDOFF, F_STOP_HEADWAY, F_STOP_LAT, F_COUNT
 };
 
 struct TickArgs {
@@ -70,7 +73,9 @@ struct TickArgs {
   float* obsxy_out;       // (B, 2, K)
   bool* arrived_out;      // (B,)
   float* metrics;         // (8, B, n_ticks)
-  int B, K, NP, ND, NB, n_ticks, n_tab;
+  const float* lights;    // (B, 6, L) x y period offset green_frac valid, or null
+  const float* t0;        // (B,) cycle start time, or null
+  int B, K, NP, ND, NB, n_ticks, n_tab, L;
   float f[F_COUNT];
 };
 
@@ -88,6 +93,13 @@ __device__ __forceinline__ float hypot_j(float a, float b) {
   if (hi == 0.f) return hi;
   float r = lo / hi;
   return hi * sqrtf(1.0f + r * r);
+}
+
+// torch.remainder / jnp.mod: the floored modulo
+__device__ __forceinline__ float floored_mod(float a, float b) {
+  float r = fmodf(a, b);
+  if (r != 0.f && ((r < 0.f) != (b < 0.f))) r += b;
+  return r;
 }
 
 // first-minimum nearest node of (px, py) on the lane's target path
@@ -149,6 +161,9 @@ __global__ void __launch_bounds__(THREADS) tick_lqr_kernel(TickArgs a) {
   const float coll_r = F[F_COLL_R];
   const size_t plane = (size_t)a.B * a.n_ticks;
   float* m_out = a.metrics + (size_t)b * a.n_ticks;
+  const int L = a.L;
+  const float* tl = L > 0 ? a.lights + (size_t)b * 6 * L : nullptr;
+  const float t_cycle = L > 0 ? a.t0[b] : 0.f;
 
   for (int i = 0; i < a.n_ticks; ++i) {
     // planned speed at t_rel: uniform hat, two nonzero weights
@@ -177,7 +192,24 @@ __global__ void __launch_bounds__(THREADS) tick_lqr_kernel(TickArgs a) {
       const float d_lat = -dxo * uy + dyo * ux;
       if (ovalid[k] && d_long > 0.f && fabsf(d_lat) < 2.f) d_lead = fminf(d_lead, d_long);
     }
-    const float v_cap = fmaxf((d_lead - F[F_STANDOFF]) / F[F_HEADWAY], 0.f);
+    float v_cap = fmaxf((d_lead - F[F_STANDOFF]) / F[F_HEADWAY], 0.f);
+    if (L > 0) {
+      // red-light cap: nearest red stop line ahead in the same corridor
+      const float t_abs = t_cycle + t_rel;
+      float d_stop = INFINITY;
+      for (int l = 0; l < L; ++l) {
+        const float per = tl[2 * L + l];
+        const float phase = floored_mod(t_abs + tl[3 * L + l], fmaxf(per, 1e-3f));
+        const bool red = tl[5 * L + l] > 0.5f && !(phase < tl[4 * L + l] * per);
+        const float dxl = tl[l] - x, dyl = tl[L + l] - y;
+        const float dl_long = dxl * ux + dyl * uy;
+        const float dl_lat = -dxl * uy + dyl * ux;
+        if (red && dl_long > 0.f && fabsf(dl_lat) < F[F_STOP_LAT])
+          d_stop = fminf(d_stop, dl_long);
+      }
+      v_cap = fminf(v_cap,
+                    fmaxf((d_stop - F[F_STOP_STANDOFF]) / F[F_STOP_HEADWAY], 0.f));
+    }
     const float tick_kmh = 3.6f * fminf(plan_speed, v_cap);
 
     // LQR: gain lerp, predicted-pose tracking error, feedforward
@@ -333,6 +365,8 @@ extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* ipar
   a.obsxy_out = (float*)ptrs[18];
   a.arrived_out = (bool*)ptrs[19];
   a.metrics = (float*)ptrs[20];
+  a.lights = (const float*)ptrs[21];
+  a.t0 = (const float*)ptrs[22];
   a.B = iparams[0];
   a.K = iparams[1];
   a.NP = iparams[2];
@@ -340,8 +374,10 @@ extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* ipar
   a.NB = iparams[4];
   a.n_ticks = iparams[5];
   a.n_tab = iparams[6];
+  a.L = iparams[7];
   for (int j = 0; j < F_COUNT; ++j) a.f[j] = fparams[j];
-  if (a.K > KMAX || a.NB > NBMAX || a.n_tab > TABMAX || a.ND < 2 || a.NP < 1)
+  if (a.K > KMAX || a.NB > NBMAX || a.n_tab > TABMAX || a.ND < 2 || a.NP < 1 ||
+      a.L < 0 || (a.L > 0 && (a.lights == nullptr || a.t0 == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
   const int blocks = (a.B + THREADS - 1) / THREADS;

@@ -9,10 +9,10 @@ the checkout. A library's file name carries a hash of its source and flags,
 so an edited source is never served from a stale build.
 
 Build flags: ``-O3``, no ``--use_fast_math`` (IEEE division and full-range
-``sinf``/``cosf`` everywhere). The path-DP obstacle-cost kernel and the
-tick kernel build with ``-fmad=false`` so that every multiply and add
-rounds on its own, as the eager PyTorch version does; the QP kernel keeps
-fused multiply-adds for its dots.
+``sinf``/``cosf`` everywhere). The path-DP obstacle-cost kernel, the tick
+kernel and the speed-DP kernel build with ``-fmad=false`` so that every
+multiply and add rounds on its own, as the eager PyTorch version does; the
+QP kernel keeps fused multiply-adds for its dots.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ SOURCES = {
     "qp_admm": ("qp_admm.cu", ()),
     "path_obs": ("path_obs.cu", ("-fmad=false",)),
     "tick_lqr": ("tick_lqr.cu", ("-fmad=false",)),
+    "speed_dp": ("speed_dp.cu", ("-fmad=false",)),
 }
 _BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -24,6 +24,7 @@ __all__ = [
     "s_map_from_origin",
     "cartesian_to_sl",
     "cartesian_to_frenet_full",
+    "dynamic_obs_frenet",
     "proj_point_at_s",
     "frenet_to_cartesian",
     "sample_window_indices",
@@ -164,6 +165,20 @@ def cartesian_to_frenet_full(px, py, vx, vy, ax, ay, path: Path, s_map):
         (l_ddot - l_prime * s_ddot) / torch.where(small, torch.ones_like(sd2), sd2),
     )
     return s, l, s_dot, l_dot, s_ddot, l_ddot, l_prime, l_pprime
+
+
+def dynamic_obs_frenet(px, py, vx, vy, path: Path, s_map: Tensor):
+    """(s, l, s_dot, l_dot) of moving obstacles (B, K) against a path
+    (``cal_dy_obs_deri``), first-minimum nearest node."""
+    idx = nearest_index(px, py, path)
+    xr, yr, tr, kr, ds = project_to_path(px, py, path, idx)
+    s = _gather(s_map, idx) + ds
+    nx, ny = -torch.sin(tr), torch.cos(tr)
+    tx, ty = torch.cos(tr), torch.sin(tr)
+    l = (px - xr) * nx + (py - yr) * ny
+    l_dot = vx * nx + vy * ny
+    s_dot = (vx * tx + vy * ty) / (1.0 - kr * l)
+    return s, l, s_dot, l_dot
 
 
 def proj_point_at_s(s: Tensor, path: Path, s_map: Tensor):

@@ -34,7 +34,8 @@ __all__ = [
     "warm_ladder_torch", "warm_admm_kernel", "warm_zero_state",
 ]
 
-launches = {"qp_admm_warm": 0}
+# one counter per call site: the path QP and the speed QP run the same kernel
+launches = {"qp_admm_warm": 0, "qp_admm_speed": 0}
 
 
 def prefactor_constants(
@@ -98,7 +99,9 @@ class PrefactoredQP:
 
     Holds the float32 constants as NumPy and their tensors per device."""
 
-    def __init__(self, At, D, E, c, phases, iters_per_phase, sigma, alpha):
+    def __init__(self, At, D, E, c, phases, iters_per_phase, sigma, alpha,
+                 name="qp_admm_warm"):
+        self.name = name                  # key of its launch counter
         self.At = At                      # (m, n)
         self.D = D                        # (n,)
         self.E = E                        # (m,)
@@ -138,15 +141,17 @@ def make_prefactored_qp(
     rho_eq_scale: float = 1e3,
     alpha: float = 1.6,
     warm_iters_per_phase: int | None = None,
+    name: str = "qp_admm_warm",
 ) -> PrefactoredQP:
     """Build the warm solver of the QP family min 1/2 x'Px + q'x,
     l <= Ax <= u (the JAX factory with ``warm=True``). Seed the first call
-    with :func:`warm_zero_state`."""
+    with :func:`warm_zero_state`. ``name`` keys the call site's launch
+    counter in :data:`launches`."""
     _, At, D, E, c, phases = prefactor_constants(
         P_np, A_np, eq_mask_np, q_typical, rho_schedule, sigma, rho_eq_scale
     )
     iters = warm_iters_per_phase if warm_iters_per_phase is not None else iters_per_phase
-    return PrefactoredQP(At, D, E, c, phases, iters, sigma, alpha)
+    return PrefactoredQP(At, D, E, c, phases, iters, sigma, alpha, name)
 
 
 def warm_ladder_torch(solver: PrefactoredQP, q, l, u, state):
@@ -214,7 +219,7 @@ def warm_admm_kernel(solver: PrefactoredQP, q, l, u, state):
         cuda.stream_of(q),
     )
     cuda.check(err, "qp_admm_warm")
-    launches["qp_admm_warm"] += 1
+    launches[solver.name] += 1
     return x, (xs, z, y)
 
 

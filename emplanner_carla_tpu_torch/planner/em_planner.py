@@ -1,5 +1,5 @@
-"""The EM path-planning cycle on batch-first tensors (counterpart of
-``plan_path_cycle`` and ``warm_init`` in
+"""The EM planning cycles on batch-first tensors (counterpart of
+``plan_path_cycle``, ``plan_full_cycle`` and ``warm_init`` in
 ``emplanner_carla_tpu/planner/em_planner.py``).
 
 Per cycle (citations into the reference's ``test_9.py``): plan-start
@@ -18,9 +18,13 @@ import torch
 
 from emplanner_carla_tpu_torch.config import EMConfig
 from emplanner_carla_tpu_torch.ops import frenet
-from emplanner_carla_tpu_torch.planner import path_dp, path_qp, reference_line
+from emplanner_carla_tpu_torch.planner import (
+    path_dp, path_qp, reference_line, speed_planner, trajectory,
+)
 from emplanner_carla_tpu_torch.sim import perception, plant
-from emplanner_carla_tpu_torch.types import EgoState, Obstacles, Path, Tensor, hypot
+from emplanner_carla_tpu_torch.types import (
+    EgoState, Obstacles, Path, Tensor, Trajectory, hypot,
+)
 
 
 class PathPlanResult(NamedTuple):
@@ -41,13 +45,12 @@ def n_stations(cfg: EMConfig) -> int:
 
 
 def warm_init(cfg: EMConfig, batch: int, device="cpu", full: bool = False):
-    """Zero QP warm states for the closed loop: (path_qp_state, None)."""
-    if full:
-        raise NotImplementedError(
-            "the speed-QP warm state belongs to simulate_full, ported in the "
-            "next slice"
-        )
-    return (path_qp.warm_state_init(n_stations(cfg), batch, device), None)
+    """Zero QP warm states for the closed loops: (path_qp_state,
+    speed_qp_state), the second None unless ``full``."""
+    path_state = path_qp.warm_state_init(n_stations(cfg), batch, device)
+    speed_state = (speed_planner.warm_state_init(cfg.speed, batch, device)
+                   if full else None)
+    return (path_state, speed_state)
 
 
 def plan_path_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
@@ -128,3 +131,61 @@ def plan_path_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
     return PathPlanResult(
         target, match_index, feasible, st_s, qp_l, qp_state, obs_dropped
     )
+
+
+class FullPlanResult(NamedTuple):
+    path: PathPlanResult
+    trajectory: Trajectory
+    speed_qp_state: tuple       # speed-QP ADMM warm state (x_s, z, y)
+    # (B,) int32: valid ST segments dropped by st_top_m plus the path DP's
+    # dp_top_m drops, this cycle
+    segments_dropped: Tensor
+
+
+def plan_full_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
+                    prev_match_index: Tensor, cfg: EMConfig, qp_warm,
+                    first_run: bool = False) -> FullPlanResult:
+    """Path planning + S-T speed planning, the full EM cycle. ``qp_warm`` is
+    (path_qp_state, speed_qp_state). After the path stage: the speed-plan
+    start on the new path, the dynamic obstacles against it, the ST graph
+    compressed to the st_top_m segments (valid first, earliest time-in), the
+    speed DP, the convex space, the warm speed QP, densify and merge."""
+    path_warm, speed_warm = qp_warm
+    res = plan_path_cycle(global_path, ego, obstacles, prev_match_index, cfg,
+                          qp_warm=path_warm, first_run=first_run)
+    target = res.target
+    sp = cfg.speed
+
+    # 1. start condition on the new path
+    vx_w, vy_w = ego.v_world
+    s_dot0, s_ddot0 = speed_planner.speed_plan_start(
+        vx_w, vy_w, ego.ax, ego.ay, target.theta[:, 0]
+    )
+    s_dot0 = torch.clamp(s_dot0, min=0.0)
+
+    # 2. the dynamic slots against the new path (static slots cannot pass
+    # the ST graph's |l_dot| gate)
+    path_arc = trajectory.path_arc_length(target)
+    _, dyn_mask, _ = perception.perceive(ego, obstacles, cfg.loop)
+    d0 = cfg.n_static_obs
+    d_s, d_l, d_sdot, d_ldot = frenet.dynamic_obs_frenet(
+        obstacles.x[:, d0:], obstacles.y[:, d0:], obstacles.vx[:, d0:],
+        obstacles.vy[:, d0:], target, path_arc,
+    )
+
+    # 3. ST graph -> top-M -> DP -> convex space -> warm QP
+    seg = speed_planner.st_graph(d_s, d_l, d_sdot, d_ldot, dyn_mask[:, d0:], sp)
+    seg, st_dropped = speed_planner.top_m_segments(seg, sp.st_top_m)
+    segments_dropped = (st_dropped + res.obs_dropped).to(torch.int32)
+    dp = speed_planner.speed_dp(seg, s_dot0, sp)
+    s_lb, s_ub, sd_lb, sd_ub = speed_planner.convex_space(
+        dp, seg, path_arc, target.kappa, sp
+    )
+    qs, qv, qa, qt, speed_state = speed_planner.speed_qp(
+        s_dot0, s_ddot0, s_lb, s_ub, sd_lb, sd_ub, sp, warm_state=speed_warm
+    )
+
+    # 4. densify + merge
+    s_d, v_d, a_d, t_d = speed_planner.densify_speed(qs, qv, qa, qt, sp)
+    traj = trajectory.merge(target, s_d, v_d, a_d, t_d)
+    return FullPlanResult(res, traj, speed_state, segments_dropped)

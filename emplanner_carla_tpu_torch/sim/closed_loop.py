@@ -1,17 +1,20 @@
-"""The closed plan-control-step loop on batch-first tensors (counterpart of
-``simulate``, ``summarize`` and the tick loop of
+"""The closed plan-control-step loops on batch-first tensors (counterpart of
+``simulate``, ``simulate_full``, ``summarize`` and the tick loop of
 ``emplanner_carla_tpu/sim/closed_loop.py``).
 
-Each of ``cfg.loop.n_plans`` cycles runs the path-planning cycle
-(``planner/em_planner.plan_path_cycle``) and then ``cfg.loop.plan_every``
-control + plant ticks. The tick loop dispatches on the device: CUDA tensors
-run the hand-written kernel ``csrc/tick_lqr.cu`` (the port of
-``ops/tick_pallas.py run_ticks_batched``), CPU tensors run
-:func:`_full_ticks_base`, its plain PyTorch version.
+Each of ``cfg.loop.n_plans`` cycles runs a planning cycle, the path cycle
+(``planner/em_planner.plan_path_cycle``, :func:`simulate`) or the full EM
+cycle with the S-T speed plan (``plan_full_cycle``, :func:`simulate_full`),
+and then ``cfg.loop.plan_every`` control + plant ticks. The tick loop
+dispatches on the device: CUDA tensors run the hand-written kernel
+``csrc/tick_lqr.cu`` (the port of ``ops/tick_pallas.py run_ticks_batched``),
+CPU tensors run :func:`_full_ticks_base`, its plain PyTorch version. Both
+loops take optional traffic lights, whose red-light cap the kernel computes
+in its lights branch.
 
-This slice covers LQR lateral control, the kinematic plant, one plant step
-per tick and no traffic lights; other configurations raise
-``NotImplementedError``.
+Ported: LQR lateral control, the kinematic plant, one plant step per tick,
+with or without traffic lights. MPC, the dynamic plant, ``substeps > 1``
+and ``raw_heading_error`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from emplanner_carla_tpu_torch.config import EMConfig
 from emplanner_carla_tpu_torch.control import lateral, pid, vehicle
 from emplanner_carla_tpu_torch.ops import frenet, interp
 from emplanner_carla_tpu_torch.planner import em_planner
-from emplanner_carla_tpu_torch.sim import plant
+from emplanner_carla_tpu_torch.sim import plant, traffic_light
 from emplanner_carla_tpu_torch.sim.loop_constants import (
     ACC_HEADWAY, ACC_STANDOFF, COLLISION_RADIUS,
 )
@@ -35,7 +38,8 @@ from emplanner_carla_tpu_torch.types import (
     EgoState, Obstacles, Path, Tensor, hypot, tree_to,
 )
 
-launches = {"tick_lqr": 0}
+# the lights branch (K3-L) counts apart from the lights-free launches
+launches = {"tick_lqr": 0, "tick_lqr_lights": 0}
 
 
 class TickMetrics(NamedTuple):
@@ -50,7 +54,7 @@ class TickMetrics(NamedTuple):
     collided: Tensor      # within COLLISION_RADIUS of any valid obstacle
     arrived: Tensor
     feasible: Tensor      # this cycle's plan: DP feasible and finite
-    segments_dropped: Tensor  # dp_top_m drops of this tick's plan cycle
+    segments_dropped: Tensor  # st_top_m + dp_top_m drops of this tick's cycle
 
 
 class LoopCarry(NamedTuple):
@@ -59,19 +63,15 @@ class LoopCarry(NamedTuple):
     match_index: Tensor
     obstacles: Obstacles
     arrived: Tensor
-    # (path_qp_state, None): the path QP's ADMM state carried across cycles
+    # (path_qp_state, speed_qp_state or None): the planner QPs' ADMM state
+    # carried across cycles (the speed QP's in simulate_full only)
     qp_warm: tuple
 
 
-def check_supported(cfg: EMConfig, lights=None) -> None:
-    """Raise NotImplementedError for a configuration outside this slice."""
+def check_supported(cfg: EMConfig) -> None:
+    """Raise NotImplementedError for a configuration not ported yet."""
     vehicle.check_supported(cfg.control)
     plant.check_supported(cfg.plant)
-    if lights is not None:
-        raise NotImplementedError(
-            "traffic lights (the tick kernel's red-light branch) are ported "
-            "in a later slice"
-        )
 
 
 def _advance_obstacles(obs: Obstacles, dt: float) -> Obstacles:
@@ -119,9 +119,12 @@ def _lateral_error(ego: EgoState, target: Path) -> Tensor:
 
 def _full_ticks_base(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
                      target, arrived, feas, plan_ok, dest_x, dest_y,
-                     cfg: EMConfig):
+                     cfg: EMConfig, lights=None, t0=None):
     """One plan cycle's tick loop, plain PyTorch: the semantic definition
     behind the tick kernel. tspeed (B, nd) on the time grid ttime (nd,).
+    ``lights`` (a TrafficLights of (B, L), or None) caps each tick's speed
+    at the nearest red stop line ahead at absolute time t0 (B,) + t_rel;
+    with no valid light the cap is +inf and the loop is the lights-free one.
     Returns (ego', pid_buffer', pid_count', pid_last', obs', arrived',
     TickMetrics of (B, plan_every) without segments_dropped)."""
     check_supported(cfg)
@@ -146,6 +149,10 @@ def _full_ticks_base(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
         lead = obs.valid & (d_long > 0.0) & (d_lat.abs() < 2.0)
         d_lead = torch.where(lead, d_long, float("inf")).min(1).values
         v_cap = torch.clamp((d_lead - ACC_STANDOFF) / ACC_HEADWAY, min=0.0)
+        if lights is not None:
+            v_cap = torch.minimum(
+                v_cap, traffic_light.red_light_cap(ego, lights, t0 + t_rel)
+            )
         tick_target_kmh = 3.6 * torch.minimum(plan_speed, v_cap)
 
         steer, throttle, brake, cs = vehicle.run_step(
@@ -181,9 +188,10 @@ def _need(t: Tensor, shape, dtype, name: str) -> None:
 
 def run_ticks_kernel(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
                      target, arrived, feas, plan_ok, dest_x, dest_y,
-                     cfg: EMConfig):
+                     cfg: EMConfig, lights=None, t0=None):
     """Launch ``csrc/tick_lqr.cu`` for one plan cycle; same contract as
-    :func:`_full_ticks_base`."""
+    :func:`_full_ticks_base`. Without lights the kernel skips its lights
+    branch."""
     check_supported(cfg)
     dev = ego.x.device
     B = ego.x.shape[0]
@@ -198,6 +206,18 @@ def run_ticks_kernel(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
     ).contiguous()                                                  # (B, 5, K)
     tgt_in = torch.stack(list(target), 1).contiguous()              # (B, 4, NP)
     dest_x, dest_y = dest_x.contiguous(), dest_y.contiguous()
+    if lights is not None:
+        L = lights.x.shape[1]
+        tl_in = torch.stack(
+            [lights.x, lights.y, lights.period, lights.offset,
+             lights.green_frac, lights.valid.to(torch.float32)], 1
+        ).contiguous()                                              # (B, 6, L)
+        t0 = t0.contiguous()
+        _need(tl_in, (B, 6, L), torch.float32, "lights")
+        _need(t0, (B,), torch.float32, "t0")
+        tl_ptrs = [tl_in.data_ptr(), t0.data_ptr()]
+    else:
+        L, tl_ptrs = 0, [0, 0]
     vp, cc = cfg.vehicle, cfg.control
     v0, dv, table = lateral.gain_table_on(vp, cc, str(dev))
     for t, shp, dt_, nm in (
@@ -230,17 +250,20 @@ def run_ticks_kernel(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
         cc.integral_sep_threshold, cfg.loop.arrival_dist, vp.max_accel,
         vp.max_brake_decel, max(vp.steer_tau, cfg.plant.dt),
         vp.steer_rate * cfg.plant.dt, COLLISION_RADIUS,
+        traffic_light.STOP_STANDOFF, traffic_light.STOP_HEADWAY,
+        traffic_light.STOP_LAT_GATE,
     ]
     ptrs = [ego_in, pid_buf, pid_cnt, pid_last, obs_in, tspeed, ttime, tgt_in,
             feas, plan_ok, arrived, dest_x, dest_y, table, ego_out, pbuf_out,
             pcnt_out, plast_out, obsxy_out, arr_out, metrics]
-    p_arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    p_arr = (ctypes.c_void_p * (len(ptrs) + 2))(
+        *[t.data_ptr() for t in ptrs], *tl_ptrs)
     f_arr = (ctypes.c_float * len(fparams))(*fparams)
-    i_arr = (ctypes.c_int * 7)(B, K, NP, ND, NB, T, table.shape[0])
+    i_arr = (ctypes.c_int * 8)(B, K, NP, ND, NB, T, table.shape[0], L)
     fn = cuda.function("tick_lqr", "tick_lqr", (ctypes.c_void_p,) * 4)
     err = fn(p_arr, f_arr, i_arr, cuda.stream_of(ego_in))
     cuda.check(err, "tick_lqr")
-    launches["tick_lqr"] += 1
+    launches["tick_lqr_lights" if L > 0 else "tick_lqr"] += 1
 
     ego_n = EgoState(*ego_out.unbind(1))
     obs_n = obs._replace(x=obsxy_out[:, 0], y=obsxy_out[:, 1])
@@ -250,12 +273,20 @@ def run_ticks_kernel(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
     return ego_n, pbuf_out, pcnt_out, plast_out, obs_n, arr_out, m
 
 
-def run_ticks(*args):
+def run_ticks(*args, **kw):
     """The tick loop: the kernel for CUDA tensors, the plain loop on CPU."""
     ego = args[0]
     if ego.x.is_cuda:
-        return run_ticks_kernel(*args)
-    return _full_ticks_base(*args)
+        return run_ticks_kernel(*args, **kw)
+    return _full_ticks_base(*args, **kw)
+
+
+def _cycle_t0(cfg: EMConfig, cycle: int, batch: int, device) -> Tensor:
+    """(B,) absolute start time of plan cycle ``cycle``, formed in float32
+    as the JAX loop forms it: cycle * plan_every * dt."""
+    t = torch.tensor(float(cycle), dtype=torch.float32) * cfg.loop.plan_every \
+        * cfg.plant.dt
+    return torch.full((batch,), float(t), dtype=torch.float32, device=device)
 
 
 def _constant_profile(cfg: EMConfig):
@@ -276,12 +307,14 @@ def simulate(global_path: Path, ego0: EgoState, obstacles0: Obstacles,
     """Run ``cfg.loop.n_plans`` replan cycles of ``cfg.loop.plan_every``
     control ticks for a batch of scenarios. Inputs are batch-first and are
     moved to ``device`` (the card unless the caller asks for the CPU).
-    Returns the final LoopCarry and TickMetrics of (B, n_plans,
-    plan_every)."""
-    check_supported(cfg, lights)
+    ``lights``: optional ``traffic_light.TrafficLights`` of (B, L); a red
+    light ahead caps the target speed to stop at the line. Returns the
+    final LoopCarry and TickMetrics of (B, n_plans, plan_every)."""
+    check_supported(cfg)
     global_path = tree_to(global_path, device)
     ego0 = tree_to(ego0, device)
     obstacles0 = tree_to(obstacles0, device)
+    lights = tree_to(lights, device)
     lp = cfg.loop
     B = ego0.x.shape[0]
     dest_x = global_path.x[:, -1].contiguous()
@@ -300,18 +333,20 @@ def simulate(global_path: Path, ego0: EgoState, obstacles0: Obstacles,
         em_planner.warm_init(cfg, B, device),
     )
     per_cycle = []
-    for _ in range(lp.n_plans):
+    for i in range(lp.n_plans):
+        t0 = _cycle_t0(cfg, i, B, device) if lights is not None else None
         carry, metrics = plan_cycle(global_path, carry, cfg, tspeed, ttime,
-                                    dest_x, dest_y)
+                                    dest_x, dest_y, lights, t0)
         per_cycle.append(metrics)
     metrics = TickMetrics(*[torch.stack(ch, 1) for ch in zip(*per_cycle)])
     return carry, metrics
 
 
 def plan_cycle(global_path: Path, carry: LoopCarry, cfg: EMConfig,
-               tspeed: Tensor, ttime: Tensor, dest_x: Tensor, dest_y: Tensor):
-    """One replan + ``plan_every`` ticks. Returns (carry', TickMetrics of
-    (B, plan_every))."""
+               tspeed: Tensor, ttime: Tensor, dest_x: Tensor, dest_y: Tensor,
+               lights=None, t0=None):
+    """One path replan + ``plan_every`` ticks. Returns (carry', TickMetrics
+    of (B, plan_every))."""
     res = em_planner.plan_path_cycle(
         global_path, carry.ego, carry.obstacles, carry.match_index, cfg,
         qp_warm=carry.qp_warm[0],
@@ -322,7 +357,7 @@ def plan_cycle(global_path: Path, carry: LoopCarry, cfg: EMConfig,
     ego, buf_n, cnt_n, last_n, obs, arrived, m = run_ticks(
         carry.ego, cs.pid.buffer, cs.pid.count, cs.pid.last_error,
         carry.obstacles, tspeed, ttime, target, carry.arrived, res.feasible,
-        plan_ok, dest_x, dest_y, cfg,
+        plan_ok, dest_x, dest_y, cfg, lights=lights, t0=t0,
     )
     dropped = res.obs_dropped[:, None].expand(-1, m[0].shape[1])
     metrics = TickMetrics(*m, dropped)
@@ -336,10 +371,87 @@ def plan_cycle(global_path: Path, carry: LoopCarry, cfg: EMConfig,
     )
 
 
+def simulate_full(global_path: Path, ego0: EgoState, obstacles0: Obstacles,
+                  cfg: EMConfig, lights=None, record_cycle_states: bool = False,
+                  device="cuda"):
+    """The full EM closed loop: path + S-T speed planning every replan, the
+    controller tracking the trajectory's speed profile at each tick's
+    relative time, under the same time-headway guard (and optional traffic
+    lights, (B, L)) as :func:`simulate`. Inputs are batch-first and are
+    moved to ``device`` (the card unless the caller asks for the CPU).
+
+    Returns (final LoopCarry, TickMetrics of (B, n_plans, plan_every)); with
+    ``record_cycle_states`` also the ego state at the start of every plan
+    cycle, an EgoState of (B, n_plans)."""
+    check_supported(cfg)
+    global_path = tree_to(global_path, device)
+    ego0 = tree_to(ego0, device)
+    obstacles0 = tree_to(obstacles0, device)
+    lights = tree_to(lights, device)
+    B = ego0.x.shape[0]
+    dest_x = global_path.x[:, -1].contiguous()
+    dest_y = global_path.y[:, -1].contiguous()
+    carry = LoopCarry(
+        ego0,
+        vehicle.ControllerState.init(cfg.control, B, device),
+        frenet.nearest_index(ego0.x, ego0.y, global_path),
+        obstacles0,
+        torch.zeros(B, dtype=torch.bool, device=device),
+        em_planner.warm_init(cfg, B, device, full=True),
+    )
+    per_cycle, egos = [], []
+    for i in range(cfg.loop.n_plans):
+        egos.append(carry.ego)
+        t0 = _cycle_t0(cfg, i, B, device) if lights is not None else None
+        carry, metrics = full_plan_cycle(global_path, carry, cfg, dest_x,
+                                         dest_y, lights, t0)
+        per_cycle.append(metrics)
+    metrics = TickMetrics(*[torch.stack(ch, 1) for ch in zip(*per_cycle)])
+    if record_cycle_states:
+        return carry, metrics, EgoState(*[torch.stack(f, 1) for f in zip(*egos)])
+    return carry, metrics
+
+
+def full_plan_cycle(global_path: Path, carry: LoopCarry, cfg: EMConfig,
+                    dest_x: Tensor, dest_y: Tensor, lights=None, t0=None):
+    """One full EM replan + ``plan_every`` ticks on the trajectory's speed
+    profile. ``plan_ok`` covers the target pose and the trajectory's speed
+    and time; the carried QP states are sanitized. Returns (carry',
+    TickMetrics of (B, plan_every))."""
+    res = em_planner.plan_full_cycle(
+        global_path, carry.ego, carry.obstacles, carry.match_index, cfg,
+        qp_warm=carry.qp_warm,
+    )
+    traj = res.trajectory
+    plan_ok = _all_finite(res.path.target) & _all_finite((traj.speed, traj.time))
+    target = _sanitize(res.path.target)
+    tspeed = torch.nan_to_num(traj.speed).contiguous()
+    # densify's time grid is the same for every lane: the tick loop takes it
+    # once, (nd,)
+    ttime = torch.nan_to_num(traj.time[0]).contiguous()
+    cs = carry.ctrl.rebind()  # controller re-instantiation, test_9.py:415
+    ego, buf_n, cnt_n, last_n, obs, arrived, m = run_ticks(
+        carry.ego, cs.pid.buffer, cs.pid.count, cs.pid.last_error,
+        carry.obstacles, tspeed, ttime, target, carry.arrived,
+        res.path.feasible, plan_ok, dest_x, dest_y, cfg, lights=lights, t0=t0,
+    )
+    dropped = res.segments_dropped[:, None].expand(-1, m[0].shape[1])
+    metrics = TickMetrics(*m, dropped)
+    cs = vehicle.ControllerState(pid.PIDState(buf_n, cnt_n, last_n))
+    qp_warm = tuple(
+        tuple(torch.nan_to_num(a).contiguous() for a in st)
+        for st in (res.path.qp_state, res.speed_qp_state)
+    )
+    return (
+        LoopCarry(ego, cs, res.path.match_index, obs, arrived, qp_warm),
+        metrics,
+    )
+
+
 def summarize(metrics: TickMetrics) -> dict:
     """Roll-ups over every scenario and tick: RMS and max lateral error, mean
-    speed, any collision / arrival, infeasible share, total dp_top_m drops
-    (one count per plan cycle)."""
+    speed, any collision / arrival, infeasible share, total planner drops
+    (st_top_m segments and dp_top_m slots, one count per plan cycle)."""
     lat = metrics.lateral_err
     return {
         "lateral_rmse": torch.sqrt((lat * lat).mean()),

@@ -1,6 +1,6 @@
 """Scenario construction: synthetic roads, ego spawns, obstacle layouts
 (counterpart of ``synthetic_centerline``, ``place_on_path``,
-``make_scenario``, ``_place`` and ``batch_scenarios`` in
+``make_scenario``, ``_place``, ``lights_on_path`` and ``batch_scenarios`` in
 ``emplanner_carla_tpu/sim/scenario.py``).
 
 A road is a curvature-profile centerline: kappa(s) as a sum of smooth
@@ -21,6 +21,7 @@ import torch
 
 from emplanner_carla_tpu_torch.config import EMConfig
 from emplanner_carla_tpu_torch.ops import frenet
+from emplanner_carla_tpu_torch.sim.traffic_light import TrafficLights
 from emplanner_carla_tpu_torch.types import EgoState, Obstacles, Path, Tensor
 
 N_BUMPS = 6
@@ -149,6 +150,27 @@ def make_scenario_from_uniforms(
         torch.full((B,), v0, dtype=torch.float32, device=dev), z, z, z, z, z,
     )
     return Scenario(gp, ego0, obstacles)
+
+
+def lights_on_path(gp: Path, s_positions, period: float = 12.0,
+                   green_frac: float = 0.5, offsets=None, device="cuda"):
+    """Traffic lights at path stations (stop lines on the centerline) for a
+    batch of global paths (B, N): ``s_positions`` (L,) or (B, L), ``offsets``
+    likewise (zeros by default). Returns a ``traffic_light.TrafficLights`` of
+    (B, L) on ``device`` (the card unless the caller asks for the CPU), for
+    the closed loops' ``lights`` argument."""
+    gp = Path(*(a.to(device) for a in gp))
+    B = gp.x.shape[0]
+    s = torch.as_tensor(s_positions, dtype=torch.float32, device=device)
+    s = s.expand(B, s.shape[-1]).contiguous()
+    x, y, _ = place_on_path(gp, s, torch.zeros_like(s))
+    off = (torch.zeros_like(s) if offsets is None else
+           torch.as_tensor(offsets, dtype=torch.float32, device=device)
+           .expand_as(s).contiguous())
+    return TrafficLights(
+        x, y, torch.full_like(s, period), off, torch.full_like(s, green_frac),
+        torch.ones_like(s, dtype=torch.bool),
+    )
 
 
 def batch_scenarios(seed: int, batch: int, cfg: EMConfig, device="cuda",

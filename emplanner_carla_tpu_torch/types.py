@@ -82,6 +82,31 @@ class Obstacles(NamedTuple):
         return self.x.shape[-1]
 
 
+class STSegments(NamedTuple):
+    """S-T occupancy line segments, one slot per dynamic obstacle, each
+    field (B, K); ``valid`` is bool."""
+
+    s_in: Tensor
+    s_out: Tensor
+    t_in: Tensor
+    t_out: Tensor
+    valid: Tensor
+
+
+class Trajectory(NamedTuple):
+    """Time-parameterized trajectory = path x speed profile, each field
+    (B, N); ``valid`` marks samples inside the path's arc length."""
+
+    x: Tensor
+    y: Tensor
+    theta: Tensor
+    kappa: Tensor
+    speed: Tensor
+    accel: Tensor
+    time: Tensor
+    valid: Tensor
+
+
 def tree_to(tree, device):
     """Move every tensor of a (nested) NamedTuple/tuple to ``device``."""
     if isinstance(tree, Tensor):

@@ -1,15 +1,18 @@
-"""Where the PyTorch port's config-3 plan cycle spends its time on the GPU.
+"""Where the PyTorch port's full EM plan cycle spends its time on the GPU.
 
-Drives ``closed_loop.simulate`` (path loop, LQR + kinematic plant) at batch
-4096 with 256-point paths on one NVIDIA card and prints JSON lines. It
-breaks a cycle down; the end-to-end rate (cycles/s) is ``chip_smoke.py``'s.
+Drives ``closed_loop.simulate_full`` (path + S-T speed planning, LQR +
+kinematic plant, config 5) at batch 4096 with 256-point paths on one NVIDIA
+card and prints JSON lines. It breaks a cycle down; the end-to-end rate
+(cycles/s) is ``chip_smoke.py``'s.
 
 1. ``device``: from a ``torch.profiler`` trace of an unsynchronised
    2-cycle run, the device events per cycle, the device busy time per
    cycle (union of the device event intervals), the device's idle share
    against the profiled run's wall (the profiler slows the host, so the
-   unprofiled cycle idles more), and the device time of each hand-written
-   kernel;
+   unprofiled cycle idles more) and, given ``--e2e``, against the median
+   unprofiled cycle that ``chip_smoke.py --summary`` measured, and the
+   device time of each hand-written kernel (the two QP sites share one
+   kernel symbol);
 2. ``stages``: per planner stage, from a second trace in which every stage
    is bracketed by ``torch.cuda.synchronize()``: host wall, device time and
    device events per cycle. The synchronisation serialises host and device,
@@ -17,9 +20,10 @@ breaks a cycle down; the end-to-end rate (cycles/s) is ``chip_smoke.py``'s.
    the stages, and device time against wall says which are launch-bound;
 3. ``top_ops``: the device events with the most total time.
 
-Run from the root of a checkout, on a machine with the card:
+Run from the root of a checkout, on a machine with the card, after
+``chip_smoke.py`` on the same machine:
 
-    python3 profile_port.py
+    python3 chip_smoke.py --summary e2e.json && python3 profile_port.py --e2e e2e.json
 
 Imports no JAX. Fails when there is no card or the trace holds no device
 events.
@@ -27,6 +31,7 @@ events.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
 import json
@@ -38,16 +43,20 @@ import time
 SEED = 1
 BATCH = 4096
 N_PLANS = 2
-KERNELS = {"qp_admm_warm": "qp_admm_warm_kernel",
+KERNELS = {"qp_admm (path + speed sites)": "qp_admm_warm_kernel",
            "path_obs_costs": "path_obs_kernel",
+           "speed_dp": "speed_dp_kernel",
            "tick_lqr": "tick_lqr_kernel"}
+E2E_PATH = "simulate_full config 5"    # chip_smoke.py's name of this path
 
 
 def _stage_targets():
     """(module, function name, stage label) of every wrapped stage, in the
     order the plan cycle runs them."""
     from emplanner_carla_tpu_torch.ops import frenet
-    from emplanner_carla_tpu_torch.planner import path_dp, path_qp, reference_line
+    from emplanner_carla_tpu_torch.planner import (
+        path_dp, path_qp, reference_line, speed_planner, trajectory,
+    )
     from emplanner_carla_tpu_torch.sim import closed_loop, perception, plant
 
     return [
@@ -65,6 +74,16 @@ def _stage_targets():
         (path_qp, "path_qp", "path_qp (K1 inside)"),
         (frenet, "frenet_to_cartesian", "frenet"),
         (reference_line, "smooth_local_path", "smooth_target"),
+        (speed_planner, "speed_plan_start", "speed_frenet"),
+        (trajectory, "path_arc_length", "speed_frenet"),
+        (frenet, "dynamic_obs_frenet", "speed_frenet"),
+        (speed_planner, "st_graph", "st_graph"),
+        (speed_planner, "top_m_segments", "st_graph"),
+        (speed_planner, "speed_dp", "speed_dp (K4)"),
+        (speed_planner, "convex_space", "convex_space"),
+        (speed_planner, "speed_qp", "speed_qp (K1)"),
+        (speed_planner, "densify_speed", "densify_merge"),
+        (trajectory, "merge", "densify_merge"),
         (closed_loop, "_all_finite", "plan_guards"),
         (closed_loop, "_sanitize", "plan_guards"),
         (closed_loop, "run_ticks", "ticks (K3)"),
@@ -144,7 +163,7 @@ def _run(sc, cfg):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = closed_loop.simulate(*sc, cfg, device="cuda")
+    out = closed_loop.simulate_full(*sc, cfg, device="cuda")
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -152,6 +171,9 @@ def _run(sc, cfg):
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--e2e", help="chip_smoke.py --summary output, run just before")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
@@ -184,11 +206,18 @@ def main() -> int:
     busy = _busy_us(evs) / N_PLANS
     kern = {k: sum(e.time_range.elapsed_us() for e in evs if sym in e.name) / N_PLANS
             for k, sym in KERNELS.items()}
+    e2e_ms = None
+    if opts.e2e:
+        with open(opts.e2e) as fh:
+            e2e_ms = json.load(fh)["paths"][E2E_PATH]["ms_per_cycle"]
     print(json.dumps({"device": {
         "profiled_ms_per_cycle": p_wall / N_PLANS * 1e3,
         "device_events_per_cycle": len(evs) / N_PLANS,
         "device_busy_ms_per_cycle": busy / 1e3,
         "idle_share_of_profiled_run": 1.0 - busy / (p_wall / N_PLANS * 1e6),
+        "chip_smoke_median_ms_per_cycle": e2e_ms,
+        "idle_share_of_chip_smoke_median": (None if e2e_ms is None
+                                            else 1.0 - busy / 1e3 / e2e_ms),
         "kernel_ms_per_cycle": {k: v / 1e3 for k, v in kern.items()}}}), flush=True)
 
     with _Stages(), profile(activities=acts) as sprof:

@@ -15,10 +15,11 @@ import torch
 from emplanner_carla_tpu_torch.config import EMConfig
 from emplanner_carla_tpu_torch.ops import qp as t_qp
 from emplanner_carla_tpu_torch.planner import em_planner, path_dp, path_qp
+from emplanner_carla_tpu_torch.planner import speed_planner
 from emplanner_carla_tpu_torch.sim import closed_loop, scenario
 from emplanner_carla_tpu_torch.control import vehicle
 from emplanner_carla_tpu_torch.ops import frenet
-from emplanner_carla_tpu_torch.types import tree_to
+from emplanner_carla_tpu_torch.types import STSegments, tree_to
 from torch_port_helpers import (  # noqa: F401
     assert_metrics_match, assert_qp_close, cuda_device, np_of, t32,
 )
@@ -127,3 +128,113 @@ def test_simulate_on_card_matches_cpu(cuda_device):
     m_cpu_np = closed_loop.TickMetrics(*[np_of(a) for a in m_cpu])
     assert_metrics_match(tree_to(m_gpu, "cpu"), m_cpu_np,
                          closed_loop.TickMetrics._fields, "simulate.")
+
+
+def _random_segments(B, K, device, seed=3):
+    rng = np.random.default_rng(seed)
+    s_in = rng.uniform(5, 40, (B, K))
+    t_in = rng.uniform(0, 4, (B, K))
+    seg = STSegments(
+        t32(s_in, device), t32(s_in + rng.uniform(1, 10, (B, K)), device),
+        t32(t_in, device), t32(t_in + rng.uniform(0.3, 3, (B, K)), device),
+        torch.as_tensor(rng.uniform(size=(B, K)) < 0.6, device=device),
+    )
+    return seg, t32(rng.uniform(3, 14, B), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 4])
+def test_k4_kernel_equals_plain_on_card(cuda_device, K):
+    B = 203  # not a multiple of the kernel's 8 lanes a block
+    seg, v0 = _random_segments(B, K, cuda_device)
+    sp = CFG.speed
+    before = speed_planner.launches["speed_dp"]
+    out_k = speed_planner.speed_dp(seg, v0, sp)
+    assert speed_planner.launches["speed_dp"] == before + 1
+    out_p = speed_planner._speed_dp_torch(seg, v0, sp)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k.end_index, out_p.end_index.to(torch.int32))
+    assert torch.equal(out_k.valid, out_p.valid)
+    assert torch.equal(out_k.s, out_p.s)
+    ends = out_k.end_index
+    assert bool((ends < sp.n_t - 1).any()) and bool((ends == sp.n_t - 1).any())
+
+
+@pytest.mark.cuda
+def test_k1_speed_site_kernel_matches_plain_on_card(cuda_device):
+    """K1 at n 51, m 99 (the speed QP) on bounds from the convex space of
+    random segments; the equality rows' dual is held by the next solve."""
+    B = 100
+    sp = CFG.speed
+    seg, v0 = _random_segments(B, 2, cuda_device, seed=4)
+    dp = speed_planner._speed_dp_torch(seg, v0, sp)
+    path_s = torch.arange(96, device=cuda_device, dtype=torch.float32)[None].expand(B, 96) * 2.0
+    kappa = torch.full((B, 96), 0.01, device=cuda_device)
+    bounds = speed_planner.convex_space(dp, seg, path_s, kappa, sp)
+    a0 = torch.zeros(B, device=cuda_device)
+    solver = speed_planner._speed_solver(sp)
+    assert (solver.n, solver.m) == (51, 99)
+    state = speed_planner.warm_state_init(sp, B, cuda_device)
+    before = t_qp.launches["qp_admm_speed"]
+    speed_planner.speed_qp(v0, a0, *bounds, sp, warm_state=state)
+    assert t_qp.launches["qp_admm_speed"] == before + 1
+    q, l, u = speed_planner.speed_qp_problem(v0, a0, *bounds, sp)
+    x_p, st_p = t_qp.warm_ladder_torch(solver, q, l, u, state)
+    xk, stk = t_qp.warm_admm_kernel(solver, q, l, u, state)
+    torch.cuda.synchronize()
+    eq = speed_planner._speed_qp_constants(sp)[2]
+    assert_qp_close(np_of(xk), [np_of(a) for a in stk], np_of(x_p),
+                    [np_of(a) for a in st_p], y_rows=~eq)
+    xk2, stk2 = t_qp.warm_admm_kernel(solver, q, l, u, stk)
+    xp2, stp2 = t_qp.warm_ladder_torch(solver, q, l, u, st_p)
+    torch.cuda.synchronize()
+    # the functional bar of the JAX package's own warm-state test
+    # (tests/test_qp_pallas.py): the next solve agrees within 5e-3
+    assert_qp_close(np_of(xk2), [np_of(a) for a in stk2], np_of(xp2),
+                    [np_of(a) for a in stp2], atol=5e-3, y_rows=~eq)
+
+
+@pytest.mark.cuda
+def test_k3l_kernel_matches_plain_on_card(cuda_device):
+    """The tick kernel's lights branch: red, green and switching lanes."""
+    args = _tick_args(cuda_device)
+    B = args[0].x.shape[0]
+    offsets = torch.linspace(0.0, 12.0, B + 1, device=cuda_device)[:B, None].expand(B, 2)
+    lights = scenario.lights_on_path(args[7], (11.0, 41.0), period=12.0,
+                                     green_frac=0.5, offsets=offsets,
+                                     device=cuda_device)
+    t0 = torch.full((B,), 2.0, device=cuda_device)
+    out_k = closed_loop.run_ticks_kernel(*args, lights=lights, t0=t0)
+    out_p = closed_loop._full_ticks_base(*args, lights=lights, t0=t0)
+    torch.cuda.synchronize()
+    mk = closed_loop.TickMetrics(*out_k[6], None)
+    mp = closed_loop.TickMetrics(*[np_of(a) for a in out_p[6]], None)
+    assert_metrics_match(mk, mp, TICK_FIELDS, "kernel+lights.")
+    free = closed_loop.run_ticks_kernel(*args)
+    slower = out_k[6][2][:, -1] < free[6][2][:, -1] - 1.0
+    assert bool(slower.any()) and not bool(slower.all())
+    # with no valid light the lights branch reproduces the lights-free loop
+    none = closed_loop.run_ticks_kernel(
+        *args, lights=closed_loop.traffic_light.TrafficLights.none(B, 2, cuda_device),
+        t0=t0)
+    for a, b in zip(none[6], free[6]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_simulate_full_on_card_matches_cpu(cuda_device):
+    sc = scenario.batch_scenarios(5, 16, CFG, device="cpu", n_path=96)
+    lights = scenario.lights_on_path(sc.global_path, (11.0, 41.0), period=12.0,
+                                     offsets=torch.linspace(0, 11, 16)[:, None].expand(16, 2),
+                                     device="cpu")
+    for tl in (None, lights):
+        before = dict(t_qp.launches), speed_planner.launches["speed_dp"]
+        _, m_gpu = closed_loop.simulate_full(*sc, CFG, lights=tl, device=cuda_device)
+        n = CFG.loop.n_plans
+        assert t_qp.launches["qp_admm_warm"] - before[0]["qp_admm_warm"] == n
+        assert t_qp.launches["qp_admm_speed"] - before[0]["qp_admm_speed"] == n
+        assert speed_planner.launches["speed_dp"] - before[1] == n
+        _, m_cpu = closed_loop.simulate_full(*sc, CFG, lights=tl, device="cpu")
+        m_cpu_np = closed_loop.TickMetrics(*[np_of(a) for a in m_cpu])
+        assert_metrics_match(tree_to(m_gpu, "cpu"), m_cpu_np,
+                             closed_loop.TickMetrics._fields, "simulate_full.")

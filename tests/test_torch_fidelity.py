@@ -3,17 +3,11 @@
 5 cm lateral-RMSE bar, at the settings of
 ``test_fidelity.test_closed_loop_matches_numpy_oracle``."""
 
-import contextlib
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
-
-try:  # optional: caps BLAS/OpenMP threads where installed; results are the same
-    from threadpoolctl import threadpool_limits
-except ImportError:
-    threadpool_limits = None
 
 from emplanner_carla_tpu.config import EMConfig as JCfg
 from emplanner_carla_tpu.oracle import closed_loop_np
@@ -21,6 +15,7 @@ from emplanner_carla_tpu.sim import scenario as j_sc
 from emplanner_carla_tpu_torch import convert
 from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
 from test_fidelity import N_PLANS, lateral_rmse, unpack_scenario
+from torch_port_helpers import run_single_threaded
 
 
 @pytest.mark.parametrize("seed", [0, 2])
@@ -32,18 +27,14 @@ def test_port_closed_loop_matches_numpy_oracle(seed):
         v0=10.0,
     )
     batch = jax.tree.map(lambda a: np.asarray(a)[None], sc)
-    # one BLAS thread: the oracle's small float64 solves gain nothing from
-    # more, and idle-spinning BLAS threads slow the other test workers
-    cap = (threadpool_limits(limits=1) if threadpool_limits is not None
-           else contextlib.nullcontext())
-    with cap:
-        _, m = t_cl.simulate(
-            convert.path_from_numpy(batch.global_path),
-            convert.ego_from_numpy(batch.ego0),
-            convert.obstacles_from_numpy(batch.obstacles), tcfg, device="cpu",
-        )
-        g, ego0, statics, _ = unpack_scenario(sc)
-        ox, oy = closed_loop_np.simulate(g, ego0, statics, jcfg, n_plans=N_PLANS)
+    _, m = t_cl.simulate(
+        convert.path_from_numpy(batch.global_path),
+        convert.ego_from_numpy(batch.ego0),
+        convert.obstacles_from_numpy(batch.obstacles), tcfg, device="cpu",
+    )
+    g, ego0, statics, _ = unpack_scenario(sc)
+    ox, oy = run_single_threaded(closed_loop_np.simulate, g, ego0, statics, jcfg,
+                                 N_PLANS)
     px = m.x.numpy().reshape(-1)
     py = m.y.numpy().reshape(-1)
     assert len(ox) == len(px)

@@ -17,6 +17,8 @@ from emplanner_carla_tpu.sim import closed_loop as j_cl
 from emplanner_carla_tpu.sim import scenario as j_sc
 from emplanner_carla_tpu.sim.traffic_light import TrafficLights
 from emplanner_carla_tpu_torch import convert
+from emplanner_carla_tpu_torch.ops import frenet
+from emplanner_carla_tpu_torch.planner import em_planner
 from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
 from emplanner_carla_tpu_torch.sim import scenario as t_sc
 from torch_port_helpers import assert_metrics_match, np_of
@@ -149,14 +151,36 @@ def test_one_more_cycle_from_jax_carry(jax_run):
     dict(control=dict(raw_heading_error=True)),
     dict(plant=dict(kind="dynamic")),
     dict(plant=dict(substeps=2)),
-    dict(lights=True),
+    dict(cold_speed_qp=True),
 ])
 def test_outside_the_slice_raises(change):
     cfg = TC
     for part, kw in change.items():
-        if part != "lights":
+        if part != "cold_speed_qp":
             cfg = dataclasses.replace(cfg, **{part: dataclasses.replace(getattr(cfg, part), **kw)})
     sc = t_sc.batch_scenarios(0, 2, cfg, device="cpu", n_path=96)
     with pytest.raises(NotImplementedError, match="later slice"):
-        t_cl.simulate(*sc, cfg, lights=object() if "lights" in change else None,
-                      device="cpu")
+        if "cold_speed_qp" in change:
+            # a full cycle without a speed-QP warm state reaches the cold
+            # ladder (K1c)
+            mi = frenet.nearest_index(sc.ego0.x, sc.ego0.y, sc.global_path)
+            path_warm, _ = em_planner.warm_init(cfg, 2, "cpu", full=True)
+            em_planner.plan_full_cycle(sc.global_path, sc.ego0, sc.obstacles,
+                                       mi, cfg, qp_warm=(path_warm, None))
+        else:
+            t_cl.simulate(*sc, cfg, device="cpu")
+
+
+def test_lights_now_run():
+    """Traffic lights are ported: a red stop line 8 m ahead brakes the ego
+    in both loops (the cap (8 - 4) / 1.2 m/s is below its 8 m/s), where
+    the lights-free run keeps its speed."""
+    sc = t_sc.batch_scenarios(0, 2, TC, device="cpu", n_path=96)
+    # the ego starts at station 0; a light with green_frac 0 is always red
+    lights = t_sc.lights_on_path(sc.global_path, [8.0], period=100.0,
+                                 green_frac=0.0, device="cpu")
+    for sim in (t_cl.simulate, t_cl.simulate_full):
+        _, free = sim(*sc, TC, device="cpu")
+        _, held = sim(*sc, TC, lights=lights, device="cpu")
+        assert bool(torch.isfinite(held.x).all())
+        assert float(held.speed_kmh[:, -1, -1].max()) < float(free.speed_kmh[:, -1, -1].min())
