@@ -26,15 +26,29 @@ Phases (any failure exits non-zero and prints no result line):
      solve, see ``_check_qp``);
    - from ``simulate_full`` with two traffic lights a lane: the tick loop's
      lights branch (the tick loop's bar);
+   - from ``simulate_full`` at config 4 (MPC + dynamic bicycle): the tick
+     kernel's other instantiations on that cycle's inputs, MPC + dynamic
+     (config 4's launch), MPC + kinematic (K5 alone), LQR + dynamic (K6
+     alone) and the feedforward MPC variant with two plant steps a tick, each
+     at the JAX package's kernel-vs-scan bar (``tests/test_tick_pallas.py``:
+     positions, speed and PID buffer within 1e-3, heading 5e-4, obstacles
+     1e-4, lateral error 2e-3; PID count and decisions identical), with the
+     (lane, tick) pairs that ran the MPC's box ADMM;
+   - the cold QP (K1c) at the speed site, on bench config 1's two-segment
+     set tiled to the batch, and at the path site, on bench config 2's
+     open-loop plan: x within the site's K1 bar;
 3. end to end, each main path with every launch counter taken from zero
    just before it and read just after: ``simulate`` at config 3 and
-   ``simulate_full`` at config 5 (batch 4096, 20 plans x 100 ticks,
+   ``simulate_full`` at configs 5 and 4 (batch 4096, 20 plans x 100 ticks,
    256-point paths), five timed runs each, finite metrics, collisions,
-   lateral RMSE and the median cycles/s; then ``simulate_full`` with the
-   traffic lights once;
-4. device equivalence: ``simulate`` and ``simulate_full`` (with and without
-   lights) on 128 scenarios x 2 plans with ``device="cuda"`` and
-   ``device="cpu"``;
+   lateral RMSE and the median cycles/s; then once each ``simulate_full``
+   with the traffic lights, config 4 on the kinematic plant, config 5 on the
+   dynamic plant and config 4 with the feedforward MPC and two plant steps a
+   tick; then bench config 1 (standalone S-T DP + cold speed QP, solves/s)
+   and config 2 (open-loop path plan, plans/s), five timed runs each;
+4. device equivalence: ``simulate``, ``simulate_full`` (with and without
+   lights) and ``simulate_full`` at config 4 on 128 scenarios x 2 plans
+   with ``device="cuda"`` and ``device="cpu"``;
 5. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -62,7 +76,8 @@ H100_BYTES_PER_S = 3.35e12  # published HBM3 rate
 LIGHT_S = (30.0, 60.0)
 # per-kernel checks printed beside the times, not part of the JSON line
 _EXTRA = ("y_max_abs_err", "candidates_in_window", "speed_columns_read",
-          "live_triples", "lanes_capped", "input")
+          "live_triples", "lanes_capped", "input", "admm_lane_ticks",
+          "admm_lane_ticks_plain")
 
 
 def _card_line() -> str:
@@ -152,6 +167,12 @@ def _capture_cycle(run, cfg, n_plans: int):
     """Run ``run(cfg)`` for the first ``n_plans`` plan cycles of a main path,
     recording each kernel wrapper's arguments in the last of them (the QP's
     keyed by its call site)."""
+    return _capture(lambda: run(_with_plans(cfg, n_plans)))
+
+
+def _capture(fn):
+    """Run ``fn()``, recording each kernel wrapper's arguments at its last
+    launch (the QP's keyed by its call site)."""
     import torch
 
     from emplanner_carla_tpu_torch.ops import qp as t_qp
@@ -173,14 +194,14 @@ def _capture_cycle(run, cfg, n_plans: int):
             return fn(*args, **kw)
         return wrapped
 
-    for (mod, name), fn in originals.items():
-        setattr(mod, name, recorder(name, fn))
+    for (mod, name), orig in originals.items():
+        setattr(mod, name, recorder(name, orig))
     try:
-        run(_with_plans(cfg, n_plans))
+        fn()
         torch.cuda.synchronize()
     finally:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
+        for (mod, name), orig in originals.items():
+            setattr(mod, name, orig)
     return captured
 
 
@@ -290,15 +311,42 @@ def _check_path_obs(captured):
         bound_by=by, library_ms=None, candidates_in_window=n_ok)
 
 
-def _check_ticks(cfg, captured, name, replaces):
+def _tick_bar(name, out_k, out_p):
+    """The JAX package's kernel-vs-scan bar (``tests/test_tick_pallas.py``):
+    ego x, y, vx and the PID buffer within 1e-3, heading within 5e-4,
+    obstacle x within 1e-4, the x metric within 1e-3, the lateral error
+    within 2e-3; PID count, arrival and the decision channels identical."""
+    import torch
+
+    ek, ep = out_k[0], out_p[0]
+    for ch, a, b, atol in (
+        ("x", ek.x, ep.x, 1e-3), ("y", ek.y, ep.y, 1e-3), ("phi", ek.phi, ep.phi, 5e-4),
+        ("vx", ek.vx, ep.vx, 1e-3), ("pid_buffer", out_k[1], out_p[1], 1e-3),
+        ("obs.x", out_k[4].x, out_p[4].x, 1e-4), ("metric x", out_k[6][0], out_p[6][0], 1e-3),
+        ("lateral_err", out_k[6][3], out_p[6][3], 2e-3),
+    ):
+        err = float((a - b).abs().max())
+        if not err <= atol:
+            raise AssertionError(f"{name} {ch}: max |diff| {err} > {atol}")
+    for ch, a, b in (("pid_count", out_k[2], out_p[2]), ("arrived", out_k[5], out_p[5]),
+                     ("collided", out_k[6][5], out_p[6][5]),
+                     ("arrived metric", out_k[6][6], out_p[6][6]),
+                     ("feasible", out_k[6][7], out_p[6][7])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} {ch}: {int((a != b).sum())} of {a.numel()} differ")
+
+
+def _check_ticks(cfg, captured, name, replaces, tick_bar=False):
     """The tick kernel against its plain loop on captured arguments (with
-    the captured lights, if any): bool channels identical, floats within
-    rtol 1e-5 / atol 5 mm."""
+    the captured lights, if any), run under ``cfg``: bool channels
+    identical, floats within rtol 1e-5 / atol 5 mm; with ``tick_bar`` the
+    JAX package's kernel-vs-scan bar (:func:`_tick_bar`) instead."""
     import torch
 
     from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
 
     args, kw = captured["run_ticks_kernel"]
+    args = args[:-1] + (cfg,)
     out_k = t_cl.run_ticks_kernel(*args, **kw)
     out_p = t_cl._full_ticks_base(*args, **kw)
     torch.cuda.synchronize()
@@ -306,14 +354,16 @@ def _check_ticks(cfg, captured, name, replaces):
     names = t_cl.TickMetrics._fields[:8]
     for ch, a, b in zip(names, out_k[6], out_p[6]):
         if a.dtype == torch.bool:
-            if not torch.equal(a, b):
+            if not tick_bar and not torch.equal(a, b):
                 raise AssertionError(f"{name} {ch}: {int((a != b).sum())} "
                                      f"of {a.numel()} differ")
         else:
-            if not torch.allclose(a, b, rtol=1e-5, atol=5e-3):
+            if not tick_bar and not torch.allclose(a, b, rtol=1e-5, atol=5e-3):
                 raise AssertionError(f"{name} {ch}: max |diff| "
                                      f"{float((a - b).abs().max())}")
             err = max(err, float((a - b).abs().max()))
+    if tick_bar:
+        _tick_bar(name, out_k, out_p)
     k3 = lambda: t_cl.run_ticks_kernel(*args, **kw)  # noqa: E731
     call_ms = _time_ms(k3, 20)
     ms = _device_ms(k3, 20, call_ms)
@@ -323,11 +373,27 @@ def _check_ticks(cfg, captured, name, replaces):
     T = cfg.loop.plan_every
     lights = kw.get("lights")
     L = 0 if lights is None else lights.x.shape[1]
+    cc, pc = cfg.control, cfg.plant
     # per tick: two first-min matches (6 ops per path node), the obstacle
     # passes (ACC gate, advance, collision: ~25 ops per slot), the red-light
     # gate (~20 ops per light), the PID window sum and ~200 scalar ops of
-    # controller, plant and metrics
-    flops = float(B) * T * (2 * NP * 6 + K * 25 + L * 20 + NB + 200)
+    # controller, plant and metrics; ~40 more a plant step for each extra
+    # step and for the dynamic bicycle's tyre forces
+    per_tick = 2 * NP * 6 + K * 25 + L * 20 + NB + 200
+    per_tick += 40 * (pc.substeps - 1) + (40 * pc.substeps if pc.kind == "dynamic" else 0)
+    flops = float(B) * T * per_tick
+    extra = {}
+    if cc.kind == "MPC":
+        nu = cc.mpc_n * cc.mpc_p
+        # every tick: the W1 / w2 lerps and u* (~25 ops a variable); a
+        # (lane, tick) that runs the ADMM adds the G1 / g2 lerps and f (~25
+        # a variable), the Minv lerp (3 a entry) and per iteration the
+        # product Minv v (2 nu^2) and ~5 ops a variable
+        admm = int(out_k[7].admm_ticks.sum())
+        flops += float(B) * T * 25 * nu + admm * (
+            25 * nu + 3 * nu * nu + cc.mpc_warm_admm_iters * (2 * nu * nu + 5 * nu))
+        extra["admm_lane_ticks"] = admm
+        extra["admm_lane_ticks_plain"] = int(out_p[7].admm_ticks.sum())
     # the speed profile is read only where the ticks' hat lookups land
     # (t_rel = dt .. T*dt), two entries of the time grid give its spacing;
     # the target path is counted whole (heading and curvature are read
@@ -344,7 +410,11 @@ def _check_ticks(cfg, captured, name, replaces):
         + 2 * ttime.element_size() \
         + _nbytes(*list(out_k[0]), out_k[1], out_k[2], out_k[3], out_k[4].x,
                   out_k[4].y, out_k[5], *out_k[6])
-    extra = {}
+    if out_k[7] is not None:
+        from emplanner_carla_tpu_torch.control import lateral
+
+        nbytes += _nbytes(*out_k[7], lateral.mpc_tables_on(
+            cfg.vehicle, cc, str(ego.x.device))[2]["packed"])
     if lights is not None:
         nbytes += _nbytes(*list(lights), kw["t0"])
         # lanes whose cycle the red-light cap changed: the lights-free run
@@ -357,6 +427,53 @@ def _check_ticks(cfg, captured, name, replaces):
         replaces=replaces, max_abs_err=err, ms=ms, call_ms=call_ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
         speed_columns_read=cols_read, **extra)
+
+
+def _displaced(captured):
+    """Captured tick arguments with each ego moved up to 2.5 m sideways and
+    0.4 rad off its heading (a spread over the batch)."""
+    import torch
+
+    args, kw = captured["run_ticks_kernel"]
+    ego = args[0]
+    off = torch.linspace(-2.5, 2.5, ego.x.shape[0], device=ego.x.device)
+    ego = ego._replace(x=ego.x - off * torch.sin(ego.phi),
+                       y=ego.y + off * torch.cos(ego.phi),
+                       phi=ego.phi + 0.4 * torch.sin(7.0 * off))
+    return {"run_ticks_kernel": ((ego,) + args[1:], kw)}
+
+
+def _check_cold_qp(captured, site, atol):
+    """The cold QP (K1c) against the plain ladder from the zero state on a
+    site's captured arguments: x within rtol 1e-4 / ``atol`` (the site's K1
+    bar)."""
+    import torch
+
+    from emplanner_carla_tpu_torch.ops import qp as t_qp
+
+    (solver, q, l, u, zero), _ = captured[site]
+    x_k = solver(q, l, u)
+    x_p = t_qp.warm_ladder_torch(solver, q, l, u, zero)[0]
+    torch.cuda.synchronize()
+    err = float((x_k - x_p).abs().max())
+    if not torch.allclose(x_k, x_p, rtol=1e-4, atol=atol):
+        raise AssertionError(f"{site} x: max |diff| {err}")
+    k1 = lambda: solver(q, l, u)  # noqa: E731
+    call_ms = _time_ms(k1, 20)
+    ms = _device_ms(k1, 20, call_ms)
+    plain_ms = _time_ms(lambda: t_qp.warm_ladder_torch(solver, q, l, u, zero), 3)
+    B, n, m = q.shape[0], solver.n, solver.m
+    P, it = solver.rho.shape[0], solver.iters
+    flops = 2.0 * B * P * it * (2 * m * n + n * n) + B * P * it * (10 * m + 3 * n)
+    k = solver.consts(q.device)
+    # a cold solve reads (q, l, u) and the constants and writes x alone
+    nbytes = _nbytes(q, l, u, k["At"], k["Kinv"], k["rho"], k["D"], k["E"], x_k)
+    bound, by = _bound_ms(nbytes, flops)
+    return dict(
+        name=site, route="cuda", source="emplanner_carla_tpu_torch/csrc/qp_admm.cu",
+        replaces="emplanner_carla_tpu/ops/qp_pallas.py:279", max_abs_err=err, ms=ms,
+        call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None)
 
 
 def _speed_dp_live(seg, cfg):
@@ -501,6 +618,33 @@ def _assert_metrics_match(m_a, m_b, label):
                                  f"{float((a - b).abs().max())}")
 
 
+def _config1_run(seg, v0, cfg):
+    """Bench config 1 (``bench_all.py:52-78``), batch-first: the speed DP,
+    the convex space on its 60-point straight path and the cold speed QP.
+    Returns the QP's stations s (B, n_t + 1)."""
+    import torch
+
+    from emplanner_carla_tpu_torch.planner import speed_planner
+
+    B, dev = v0.shape[0], v0.device
+    dp = speed_planner.speed_dp(seg, v0, cfg.speed)
+    path_s = torch.linspace(0.0, 120.0, 60, device=dev).expand(B, 60)
+    bounds = speed_planner.convex_space(dp, seg, path_s,
+                                        torch.full((B, 60), 1e-3, device=dev), cfg.speed)
+    return speed_planner.speed_qp(v0, torch.zeros_like(v0), *bounds, cfg.speed)[0]
+
+
+def _config2_run(sc, cfg):
+    """Bench config 2 (``bench_all.py:80-88``): the open-loop path plan from
+    match index 0 with a cold path QP."""
+    import torch
+
+    from emplanner_carla_tpu_torch.planner import em_planner
+
+    mi = torch.zeros(sc.ego0.x.shape[0], dtype=torch.int32, device=sc.ego0.x.device)
+    return em_planner.plan_path_cycle(sc.global_path, sc.ego0, sc.obstacles, mi, cfg)
+
+
 def main() -> int:
     import torch
 
@@ -513,9 +657,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from emplanner_carla_tpu_torch import cuda as kbuild
-    from emplanner_carla_tpu_torch.config import EMConfig
+    from emplanner_carla_tpu_torch.config import EMConfig, mpc_feedforward_variant
     from emplanner_carla_tpu_torch.planner import speed_planner
     from emplanner_carla_tpu_torch.sim import closed_loop, scenario
+    from emplanner_carla_tpu_torch.types import tree_to
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -528,17 +673,27 @@ def main() -> int:
           flush=True)
     for name, log in kbuild.build_log.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln
-                or "spill" in ln]
+                or "spill" in ln or "entry function" in ln]
         print(f"ptxas {name}: " + " | ".join(regs), flush=True)
 
     cfg = EMConfig()
     assert cfg.loop.n_plans == 20 and cfg.loop.plan_every == 100
+    rep = dataclasses.replace
+    # BASELINE config 4 (bench_all.py:99-112) and the variants that run the
+    # tick kernel's MPC and dynamic-plant branches apart
+    cfg4 = rep(cfg, control=rep(cfg.control, kind="MPC"),
+               plant=rep(cfg.plant, kind="dynamic"))
+    cfg4_kin = rep(cfg4, plant=cfg.plant)
+    cfg5_dyn = rep(cfg, plant=cfg4.plant)
+    cfg4_ff = rep(cfg4, control=mpc_feedforward_variant(cfg.control),
+                  plant=rep(cfg4.plant, substeps=2))
     sc = scenario.batch_scenarios(SEED, BATCH, cfg, device="cuda")
     lights = _lights_for(sc.global_path, "cuda")
     sim3 = lambda c: closed_loop.simulate(*sc, c, device="cuda")  # noqa: E731
     sim5 = lambda c: closed_loop.simulate_full(*sc, c, device="cuda")  # noqa: E731
     sim5l = lambda c: closed_loop.simulate_full(  # noqa: E731
         *sc, c, lights=lights, device="cuda")
+    seg1, v01 = _bench_config1_segments(BATCH, "cuda")
 
     # ---- per-kernel phase, on the third plan cycle of each path: in the
     # first, no obstacle reaches the path DP (the parked cars lie beyond the
@@ -553,35 +708,60 @@ def main() -> int:
     cap5 = _capture_cycle(sim5, cfg, n_plans=3)
     (seg, v0, _), _ = cap5["speed_dp_kernel"]
     entries["speed_dp"] = _check_speed_dp(seg, v0, cfg.speed, "simulate_full cycle 3")
-    fixed = _check_speed_dp(*_bench_config1_segments(BATCH, "cuda"), cfg.speed,
-                            "bench config 1 set")
+    fixed = _check_speed_dp(seg1, v01, cfg.speed, "bench config 1 set")
     eq = speed_planner._speed_qp_constants(cfg.speed)[2]
     entries["qp_admm_speed"] = _check_qp(cap5, "qp_admm_speed",
                                          "emplanner_carla_tpu/ops/qp_pallas.py:41", eq)
     cap5l = _capture_cycle(sim5l, cfg, n_plans=3)
     entries["tick_lqr_lights"] = _check_ticks(
         cfg, cap5l, "tick_lqr_lights", "emplanner_carla_tpu/ops/tick_pallas.py:211")
-    for e in (*entries.values(), fixed):
+    # the tick kernel's MPC (K5) and dynamic-plant (K6) instantiations, all on
+    # config 4's third cycle
+    cap4 = _capture_cycle(sim5, cfg4, n_plans=3)
+    for name, c, line in (("tick_mpc_dynamic", cfg4, 436),
+                          ("tick_mpc_kinematic", cfg4_kin, 436),
+                          ("tick_lqr_dynamic", cfg5_dyn, 543),
+                          ("tick_mpc_ff_substeps2", cfg4_ff, 436)):
+        entries[name] = _check_ticks(c, cap4, name,
+                                     f"emplanner_carla_tpu/ops/tick_pallas.py:{line}",
+                                     tick_bar=True)
+    # the same inputs with the egos displaced off the target, so that the
+    # MPC's u* leaves the box and its box ADMM runs (ordinary tracking stays
+    # inside it: no lane of the cycle runs the ADMM)
+    saturated = _check_ticks(cfg4, _displaced(cap4), "tick_mpc_dynamic",
+                             "emplanner_carla_tpu/ops/tick_pallas.py:436", tick_bar=True)
+    saturated["input"] = "config 4 cycle 3, egos displaced off the target"
+    # the cold QP (K1c) at its two sites
+    cap1 = _capture(lambda: _config1_run(seg1, v01, cfg))
+    entries["qp_admm_cold_speed"] = _check_cold_qp(cap1, "qp_admm_cold_speed", 1e-3)
+    cap2 = _capture(lambda: _config2_run(sc, cfg))
+    entries["qp_admm_cold_path"] = _check_cold_qp(cap2, "qp_admm_cold_path", 1e-4)
+    for e in (*entries.values(), fixed, saturated):
         _print_entry(e)
 
     # ---- end-to-end phase: the host-bound cycle's wall varies by tens of
-    # percent from run to run, so five timed runs a path ----
+    # percent from run to run, so five timed runs a main path ----
     zero = {k: 0 for k in _read_counts()}
     n = cfg.loop.n_plans
     per_path = {}
-    for label, run, kernels, reps in (
-        ("simulate config 3", sim3,
+    full = ("qp_admm_warm", "qp_admm_speed", "path_obs_costs", "speed_dp")
+    for label, run, path_cfg, kernels, reps in (
+        ("simulate config 3", sim3, cfg,
          ("qp_admm_warm", "path_obs_costs", "tick_lqr"), 5),
-        ("simulate_full config 5", sim5,
-         ("qp_admm_warm", "qp_admm_speed", "path_obs_costs", "tick_lqr", "speed_dp"), 5),
-        ("simulate_full config 5 + lights", sim5l,
-         ("qp_admm_warm", "qp_admm_speed", "path_obs_costs", "tick_lqr_lights",
-          "speed_dp"), 1),
+        ("simulate_full config 5", sim5, cfg, full + ("tick_lqr",), 5),
+        ("simulate_full config 4", sim5, cfg4, full + ("tick_mpc_dynamic",), 5),
+        ("simulate_full config 5 + lights", sim5l, cfg, full + ("tick_lqr_lights",), 1),
+        ("simulate_full config 4, kinematic plant", sim5, cfg4_kin,
+         full + ("tick_mpc_kinematic",), 1),
+        ("simulate_full config 5, dynamic plant", sim5, cfg5_dyn,
+         full + ("tick_lqr_dynamic",), 1),
+        ("simulate_full config 4, feedforward MPC, 2 substeps", sim5, cfg4_ff,
+         full + ("tick_mpc_dynamic",), 1),
     ):
-        run(_with_plans(cfg, 2))                         # warm-up
+        run(_with_plans(path_cfg, 2))                    # warm-up
         torch.cuda.synchronize()
         expected = {**zero, **{k: n for k in kernels}}
-        (_, metrics), walls, counts = _drive(label, lambda: run(cfg), expected, reps)
+        (_, metrics), walls, counts = _drive(label, lambda: run(path_cfg), expected, reps)
         assert tuple(metrics.x.shape) == (BATCH, n, cfg.loop.plan_every)
         wall = sorted(walls)[len(walls) // 2]
         summ = _summary(metrics, closed_loop, BATCH)
@@ -595,25 +775,71 @@ def main() -> int:
               f"mean speed {summ['mean_speed_kmh']:.2f} km/h, infeasible "
               f"{summ['infeasible_frac']:.5f}, segments_dropped "
               f"{summ['segments_dropped']:.0f}, launches {counts}", flush=True)
-    main_counts = per_path["simulate_full config 5"]["counts"]
+    # the open-loop entries of the cold QP: one call is one batch of solves
+    for label, fn, kernels, unit in (
+        ("config 1 standalone S-T solve", lambda: _config1_run(seg1, v01, cfg),
+         ("speed_dp", "qp_admm_cold_speed"), "solves/s"),
+        ("config 2 open-loop path plan", lambda: _config2_run(sc, cfg).target.x,
+         ("path_obs_costs", "qp_admm_cold_path"), "plans/s"),
+    ):
+        fn()                                             # warm-up
+        torch.cuda.synchronize()
+        out, walls, counts = _drive(label, fn, {**zero, **{k: 1 for k in kernels}}, 5)
+        if not bool(torch.isfinite(out).all()) or out.shape[0] != BATCH:
+            raise AssertionError(f"{label}: output {tuple(out.shape)} not finite")
+        wall = sorted(walls)[len(walls) // 2]
+        per_path[label] = dict(wall_s=wall, walls_s=walls, per_s=BATCH / wall,
+                               unit=unit, counts=counts)
+        print(f"{label}: batch {BATCH} in {wall * 1e3:.3f} ms (median of "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms) = {BATCH / wall:.1f} "
+              f"{unit} on [{card}]; launches {counts}", flush=True)
+    launch_src = {
+        "tick_lqr_lights": ("simulate_full config 5 + lights", "tick_lqr_lights"),
+        "tick_mpc_dynamic": ("simulate_full config 4", "tick_mpc_dynamic"),
+        "tick_mpc_kinematic": ("simulate_full config 4, kinematic plant",
+                               "tick_mpc_kinematic"),
+        "tick_lqr_dynamic": ("simulate_full config 5, dynamic plant", "tick_lqr_dynamic"),
+        "tick_mpc_ff_substeps2": ("simulate_full config 4, feedforward MPC, 2 substeps",
+                                  "tick_mpc_dynamic"),
+        "qp_admm_cold_speed": ("config 1 standalone S-T solve", "qp_admm_cold_speed"),
+        "qp_admm_cold_path": ("config 2 open-loop path plan", "qp_admm_cold_path"),
+    }
     for name, e in entries.items():
-        e["launches"] = (per_path["simulate_full config 5 + lights"]["counts"][name]
-                         if name == "tick_lqr_lights" else main_counts[name])
+        path, key = launch_src.get(name, ("simulate_full config 5", name))
+        e["launches"] = per_path[path]["counts"][key]
+        e["launches_from"] = path
 
     # ---- device equivalence phase ----
-    eq_cfg = _with_plans(cfg, 2)
-    small = scenario.batch_scenarios(SEED + 1, 128, eq_cfg, device="cpu")
+    small = scenario.batch_scenarios(SEED + 1, 128, cfg, device="cpu")
     small_lights = _lights_for(small.global_path, "cpu")
-    for label, fn, kw in (
-        ("simulate", closed_loop.simulate, {}),
-        ("simulate_full", closed_loop.simulate_full, {}),
-        ("simulate_full + lights", closed_loop.simulate_full, {"lights": small_lights}),
+    for label, fn, c, kw in (
+        ("simulate", closed_loop.simulate, cfg, {}),
+        ("simulate_full", closed_loop.simulate_full, cfg, {}),
+        ("simulate_full + lights", closed_loop.simulate_full, cfg, {"lights": small_lights}),
+        ("simulate_full config 4", closed_loop.simulate_full, cfg4, {}),
     ):
+        eq_cfg = _with_plans(c, 2)
         _, m_gpu = fn(*small, eq_cfg, device="cuda", **kw)
         _, m_cpu = fn(*small, eq_cfg, device="cpu", **kw)
         _assert_metrics_match(m_gpu, m_cpu, f"{label} cuda_vs_cpu")
         print(f"device equivalence, {label}: 128 scenarios x 2 plans, cuda == cpu "
               "within rtol 1e-5 / atol 5 mm, decisions identical", flush=True)
+    seg_s, v0_s = _bench_config1_segments(128, "cpu")
+    v0_s = v0_s + torch.linspace(-6.0, 4.0, 128)      # other plan-start speeds
+    s_gpu = _config1_run(tree_to(seg_s, "cuda"), v0_s.cuda(), cfg).cpu()
+    s_cpu = _config1_run(seg_s, v0_s, cfg)
+    if not torch.allclose(s_gpu, s_cpu, rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"config 1 cuda_vs_cpu: max |diff| "
+                             f"{float((s_gpu - s_cpu).abs().max())}")
+    p_gpu = _config2_run(tree_to(small, "cuda"), cfg)
+    p_cpu = _config2_run(small, cfg)
+    _assert_metrics_match(tree_to(p_gpu.target, "cpu"), p_cpu.target,
+                          "config 2 target cuda_vs_cpu")
+    if not torch.equal(p_gpu.feasible.cpu(), p_cpu.feasible):
+        raise AssertionError("config 2 feasible cuda_vs_cpu differ")
+    print("device equivalence, config 1 and config 2: 128 lanes, cuda == cpu (S-T "
+          "stations within rtol 1e-4 / atol 1 mm; target path within rtol 1e-5 / "
+          "atol 5 mm, feasibility identical)", flush=True)
 
     if opts.summary:
         with open(opts.summary, "w") as fh:

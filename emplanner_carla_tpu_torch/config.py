@@ -293,8 +293,7 @@ class ControlConfig:
     # commented alternative); the experimental
     # Lateral_MPC__with_feedforward_controller keeps the raw difference
     # ``e_fi = fi - theta_r`` (``controller.py:891``). True reproduces the
-    # variant's raw error; the port's tick kernel implements the sin
-    # convention only and raises NotImplementedError for True.
+    # variant's raw error; the tick kernel takes it as a parameter.
     raw_heading_error: bool = False
 
 

@@ -10,7 +10,7 @@ from typing import NamedTuple
 import torch
 
 from emplanner_carla_tpu_torch.config import ControlConfig
-from emplanner_carla_tpu_torch.types import Tensor
+from emplanner_carla_tpu_torch.types import Tensor, tdiv
 
 
 class PIDState(NamedTuple):
@@ -35,7 +35,7 @@ def pid_core(buffer, count, last, error, cfg: ControlConfig):
 
     have_two = count >= 2
     integral = torch.where(have_two, buffer.sum(dim=1) * cfg.pid_dt, 0.0)
-    deriv = torch.where(have_two, (error - last) / cfg.pid_dt, 0.0)
+    deriv = torch.where(have_two, tdiv(error - last, cfg.pid_dt), 0.0)
 
     # integral separation (controller.py:667-671)
     separate = error.abs() > cfg.integral_sep_threshold

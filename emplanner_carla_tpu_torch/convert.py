@@ -68,12 +68,16 @@ def carry_from_numpy(c, device="cpu") -> LoopCarry:
     """LoopCarry from a batched JAX ``closed_loop.LoopCarry``: ego, PID
     state (buffer, count, last error), match index, obstacles, arrival flag
     and the QP warm states (x_s, z, y): the path QP's, and the speed QP's
-    when the carry has one (``simulate_full``)."""
+    when the carry has one (``simulate_full``); under MPC the controller's
+    box-ADMM state (z, u_d)."""
+    f32 = lambda a: _t(a, device, torch.float32)  # noqa: E731
     p = c.ctrl.pid
-    ctrl = vehicle.ControllerState(pid.PIDState(
-        _t(p.buffer, device, torch.float32), _t(p.count, device, torch.int32),
-        _t(p.last_error, device, torch.float32),
-    ))
+    mpc = getattr(c.ctrl, "mpc", None)
+    ctrl = vehicle.ControllerState(
+        pid.PIDState(f32(p.buffer), _t(p.count, device, torch.int32),
+                     f32(p.last_error)),
+        None if mpc is None else tuple(f32(a) for a in mpc),
+    )
     qp_warm = tuple(
         None if st is None else tuple(_t(a, device, torch.float32) for a in st)
         for st in c.qp_warm

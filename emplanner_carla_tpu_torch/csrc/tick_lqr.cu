@@ -1,38 +1,55 @@
-// One plan cycle's control/plant tick loop (LQR + kinematic bicycle, with or
-// without traffic lights), all ticks in one kernel.
+// One plan cycle's control/plant tick loop, all ticks in one kernel: LQR or
+// the condensed MPC lateral controller, the kinematic or the dynamic bicycle,
+// with or without traffic lights.
 //
-// Replaces: emplanner_carla_tpu/ops/tick_pallas.py run_ticks_batched in its
-// LQR / kinematic branch, with its red-light branch (lights=, :211-217,
-// :286-308, :393-401) (dispatched at sim/closed_loop.py:706-746).
+// Replaces: emplanner_carla_tpu/ops/tick_pallas.py run_ticks_batched: its LQR /
+// kinematic branch (K3) with its red-light branch (lights=, :211-217,
+// :286-308, :393-401), its MPC branch (K5, tables :142-173, in-kernel
+// :436-503) and its dynamic-plant branch (K6, plant_mod.step at :543-548,
+// i.e. sim/plant.py:77-111) (dispatched at sim/closed_loop.py:706-746).
 // Semantics: sim/closed_loop._full_ticks_base.
 // Per tick and lane: hat lookup of the planned speed; time-headway ACC cap on
 // the nearest lead in the ego's corridor (heading fallback below 0.5 m/s);
 // with lights, the red stop line's time-headway cap in the same corridor
 // (phase = floored mod of t0 + t_rel + offset by max(period, 1e-3));
-// predicted-pose first-minimum match on the target path; LQR gain-table
-// lerp + curvature feedforward; PID with the 60-deep error buffer and
-// integral separation; arrival / bad-plan brake; kinematic plant with the
-// lagged, rate-limited steering actuator; constant-velocity obstacle
-// advance; collision check; lateral error at the new pose; 8 metric
+// predicted-pose first-minimum match on the target path; the lateral
+// controller (below); PID with the 60-deep error buffer and integral
+// separation; arrival / bad-plan brake; `substeps` plant steps at dt /
+// substeps with the lagged, rate-limited steering actuator; constant-velocity
+// obstacle advance; collision check; lateral error at the new pose; 8 metric
 // channels written as (channel, B, ticks).
+//
+// Lateral controllers. LQR: gain-table lerp + curvature feedforward. MPC
+// (control/lateral.mpc_steer_table): one lerp of the Vx-grid tables, the
+// unconstrained optimum u* = W1 e + kappa w2 (the JAX scan's form, not the
+// TPU kernel's -Hinv2 f); where some |u*_i| > 1 (or is NaN), f = 2 (G1 e +
+// kappa g2), the lerped Minv and `mpc_iters` warm box-ADMM steps from the
+// (z, u_d) carried across the cycle's ticks (zeros at cycle start); else
+// the state becomes (u*, 0). The ADMM branch is taken per lane: a warp only
+// pays for it in time.
 //
 // What bounds it on the H100: latency of the serial tick chain. The work is
 // small (about 3.8 KB in and out per lane, the speed profile counted only
-// where the ticks look it up, and ~9e4 flops per lane and cycle, which
-// makes its floor a few microseconds of float32 arithmetic at B = 4096),
-// but the ticks of a lane are strictly sequential and there is one lane per
-// scenario: 4096 lanes are 128 warps for 132 SMs, so each SM runs about one
-// warp and cannot hide the latency of its dependent arithmetic and loads.
+// where the ticks look it up; ~9e4 flops per lane and cycle for LQR, plus
+// ~3.8e3 per MPC tick that runs the ADMM), but the ticks of a lane are
+// strictly sequential and there is one lane per scenario: 4096 lanes are 128
+// warps for 132 SMs, so each SM runs about one warp and cannot hide the
+// latency of its dependent arithmetic and loads.
 //
 // What the design does about it: one thread per lane keeps the whole ego,
 // PID and obstacle state in registers (the PID buffer in a per-thread ring
 // in local memory) across all ticks, so nothing goes back to device memory
 // until the cycle ends; 32-thread blocks spread the warps over every SM; the
-// gain table sits in shared memory; the lane's target path and speed
-// profile are re-read from the L1-resident rows. A warp per lane for the
-// path match would raise the parallelism and is left to a later change.
-// The file builds with -fmad=false and uses jnp.hypot's formula, so the
-// arithmetic matches the plain PyTorch loop term for term.
+// LQR gain table sits in static shared memory, the MPC tables (64 x 264
+// floats at nu = 12, 67.6 KB) and each lane's MPC vectors and lerped Minv
+// (lane-minor, conflict-free) in dynamic shared memory; the lane's target
+// path and speed profile are re-read from the L1-resident rows. The LQR +
+// kinematic entry point `tick_lqr` keeps one plant step and the sin heading
+// error as compile-time constants, the code of K3; `tick_variant` takes
+// substeps and the raw heading error as runtime parameters.
+// The file builds with -fmad=false and uses jnp.hypot's formula, and every
+// sum runs in the plain version's order, so the arithmetic matches the plain
+// PyTorch loop term for term.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,14 +58,16 @@ namespace {
 
 constexpr int KMAX = 16;     // obstacle slots
 constexpr int NBMAX = 64;    // PID buffer depth
-constexpr int TABMAX = 256;  // gain-table rows
+constexpr int TABMAX = 256;  // LQR gain-table rows
+constexpr int NUMAX = 16;    // MPC decision variables
 constexpr int THREADS = 32;
 
 enum {
   F_DT, F_STANDOFF, F_HEADWAY, F_MIN_VX, F_TS, F_TAB_V0, F_TAB_DV, F_A, F_B, F_AB,
   F_BCF, F_ACR, F_CR, F_M, F_MAX_STEER, F_STEER_LIMIT, F_KP, F_KI, F_KD, F_PID_DT,
   F_SEP, F_ARRIVAL, F_MAX_ACCEL, F_MAX_BRAKE, F_TAU_DEN, F_RATE_DT, F_COLL_R,
-  F_STOP_STANDOFF, F_STOP_HEADWAY, F_STOP_LAT, F_COUNT
+  F_STOP_STANDOFF, F_STOP_HEADWAY, F_STOP_LAT, F_DT_SUB, F_CF, F_IZ, F_FZF, F_FZR,
+  F_COUNT
 };
 
 struct TickArgs {
@@ -65,7 +84,7 @@ struct TickArgs {
   const bool* arrived0;   // (B,)
   const float* dest_x;    // (B,)
   const float* dest_y;    // (B,)
-  const float* ktab;      // (n_tab, 4)
+  const float* tab;       // LQR (n_tab, 4) gains, or MPC (n_tab, nu*nu + 10*nu)
   float* ego_out;         // (B, 9)
   float* pbuf_out;        // (B, NB)
   int* pcnt_out;          // (B,)
@@ -75,7 +94,11 @@ struct TickArgs {
   float* metrics;         // (8, B, n_ticks)
   const float* lights;    // (B, 6, L) x y period offset green_frac valid, or null
   const float* t0;        // (B,) cycle start time, or null
+  float* mpc_z_out;       // (B, nu) MPC only
+  float* mpc_ud_out;      // (B, nu)
+  int* admm_out;          // (B,) ticks that ran the box ADMM
   int B, K, NP, ND, NB, n_ticks, n_tab, L;
+  int substeps, raw, nu, mpc_iters;
   float f[F_COUNT];
 };
 
@@ -83,6 +106,9 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   v = v < lo ? lo : v;
   return v > hi ? hi : v;
 }
+
+// jnp.maximum(v, lo) / torch.clamp(v, min=lo): a NaN v passes through
+__device__ __forceinline__ float max_nan(float v, float lo) { return v < lo ? lo : v; }
 
 // jnp.hypot: max * sqrt(1 + (min/max)^2)
 __device__ __forceinline__ float hypot_j(float a, float b) {
@@ -115,14 +141,102 @@ __device__ __forceinline__ int match(const float* tx, const float* ty, int NP,
   return bi;
 }
 
-__global__ void __launch_bounds__(THREADS) tick_lqr_kernel(TickArgs a) {
-  __shared__ float s_tab[TABMAX * 4];
-  for (int e = threadIdx.x; e < a.n_tab * 4; e += blockDim.x) s_tab[e] = a.ktab[e];
+// One MPC tick of lane `tid` (lateral.mpc_steer_table): rows r0 = table[i0],
+// r1 = table[i0 + 1], weight wf; the lane's vectors live lane-minor in shared
+// memory (element k of lane t at [k * THREADS + t]). Returns the unclipped
+// steer; updates (z, u_d) and counts an ADMM tick.
+__device__ float mpc_tick(const float* r0, const float* r1, float wf, float e0,
+                          float e1, float e2, float e3, float km, int nu, int iters,
+                          float* sM, float* sZ, float* sUd, float* sF, float* sV,
+                          float* sU, int tid, int& admm_ticks) {
+  const int oG1 = nu * nu, og2 = oG1 + 4 * nu, oW1 = og2 + nu, ow2 = oW1 + 4 * nu;
+  const float om = 1.f - wf;
+  bool interior = true;
+  for (int i = 0; i < nu; ++i) {
+    const float* p0 = r0 + oW1 + 4 * i;
+    const float* p1 = r1 + oW1 + 4 * i;
+    float u = (p0[0] * om + p1[0] * wf) * e0;
+    u = u + (p0[1] * om + p1[1] * wf) * e1;
+    u = u + (p0[2] * om + p1[2] * wf) * e2;
+    u = u + (p0[3] * om + p1[3] * wf) * e3;
+    u = u + km * (r0[ow2 + i] * om + r1[ow2 + i] * wf);
+    sU[i * THREADS + tid] = u;
+    interior = interior && fabsf(u) <= 1.f;
+  }
+  if (interior) {
+    for (int i = 0; i < nu; ++i) {
+      sZ[i * THREADS + tid] = sU[i * THREADS + tid];
+      sUd[i * THREADS + tid] = 0.f;
+    }
+    return sU[tid];
+  }
+  ++admm_ticks;
+  for (int i = 0; i < nu; ++i) {
+    const float* p0 = r0 + oG1 + 4 * i;
+    const float* p1 = r1 + oG1 + 4 * i;
+    float g = (p0[0] * om + p1[0] * wf) * e0;
+    g = g + (p0[1] * om + p1[1] * wf) * e1;
+    g = g + (p0[2] * om + p1[2] * wf) * e2;
+    g = g + (p0[3] * om + p1[3] * wf) * e3;
+    g = g + km * (r0[og2 + i] * om + r1[og2 + i] * wf);
+    sF[i * THREADS + tid] = 2.f * g;
+  }
+  for (int k = 0; k < nu * nu; ++k) sM[k * THREADS + tid] = r0[k] * om + r1[k] * wf;
+  for (int it = 0; it < iters; ++it) {
+    // v = rho (z - u_d) - f with rho = 1
+    for (int j = 0; j < nu; ++j) {
+      const int o = j * THREADS + tid;
+      sV[o] = (sZ[o] - sUd[o]) - sF[o];
+    }
+    for (int i = 0; i < nu; ++i) {
+      const float* Mi = sM + i * nu * THREADS + tid;
+      float x = Mi[0] * sV[tid];
+      for (int j = 1; j < nu; ++j) x = x + Mi[j * THREADS] * sV[j * THREADS + tid];
+      const int o = i * THREADS + tid;
+      const float zn = clip(x + sUd[o], -1.f, 1.f);
+      sUd[o] = (sUd[o] + x) - zn;
+      sZ[o] = zn;
+    }
+  }
+  return sZ[tid];
+}
+
+template <bool MPC, bool DYN, bool GENERAL>
+__global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
+  __shared__ float s_tab[MPC ? 1 : TABMAX * 4];
+  extern __shared__ float4 dsm4[];
+  float* dsm = reinterpret_cast<float*>(dsm4);
+  const int nu = MPC ? a.nu : 0;
+  const int R = nu * nu + 10 * nu;  // floats per MPC table row
+  if constexpr (MPC) {
+    for (int e = threadIdx.x; e < a.n_tab * R; e += blockDim.x) dsm[e] = a.tab[e];
+  } else {
+    for (int e = threadIdx.x; e < a.n_tab * 4; e += blockDim.x) s_tab[e] = a.tab[e];
+  }
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
+  const int tid = threadIdx.x;
   const float* F = a.f;
   const int K = a.K, NP = a.NP, ND = a.ND, NB = a.NB;
+  const int substeps = GENERAL ? a.substeps : 1;
+  const bool raw = GENERAL ? (a.raw != 0) : false;
+  const float dts = GENERAL ? F[F_DT_SUB] : F[F_DT];
+
+  // per-lane MPC vectors after the tables, lane-minor
+  float* sM = dsm + a.n_tab * R;          // [nu*nu][THREADS] lerped Minv
+  float* sZ = sM + nu * nu * THREADS;     // [nu][THREADS]
+  float* sUd = sZ + nu * THREADS;
+  float* sF = sUd + nu * THREADS;
+  float* sV = sF + nu * THREADS;
+  float* sU = sV + nu * THREADS;
+  int admm_ticks = 0;
+  if constexpr (MPC) {
+    for (int i = 0; i < nu; ++i) {
+      sZ[i * THREADS + tid] = 0.f;
+      sUd[i * THREADS + tid] = 0.f;
+    }
+  }
 
   const float* e0 = a.ego + (size_t)b * 9;
   float x = e0[0], y = e0[1], phi = e0[2], vx = e0[3], vy = e0[4], omega = e0[5];
@@ -212,15 +326,11 @@ __global__ void __launch_bounds__(THREADS) tick_lqr_kernel(TickArgs a) {
     }
     const float tick_kmh = 3.6f * fminf(plan_speed, v_cap);
 
-    // LQR: gain lerp, predicted-pose tracking error, feedforward
+    // lateral control: table lerp weights, predicted-pose tracking error
     const float vxs = vx < 0.f ? fminf(vx, -F[F_MIN_VX]) : fmaxf(vx, F[F_MIN_VX]);
     const float pos = clip((vxs - F[F_TAB_V0]) / F[F_TAB_DV], 0.f, (float)(a.n_tab - 1));
     const int ii = max(0, min((int)pos, a.n_tab - 2));
     const float wf = pos - (float)ii;
-    float kg[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      kg[j] = s_tab[ii * 4 + j] * (1.f - wf) + s_tab[(ii + 1) * 4 + j] * wf;
     const float ts = F[F_TS];
     const float xp = x + (vxs * cphi - vy * sphi) * ts;
     const float yp = y + (vy * cphi + vxs * sphi) * ts;
@@ -235,16 +345,28 @@ __global__ void __launch_bounds__(THREADS) tick_lqr_kernel(TickArgs a) {
     const float dph = php - theta_r;
     const float cd = cosf(dph), sd = sinf(dph);
     const float e_d_dot = vy * cd + vxs * sd;
-    const float e_phi = sd;
+    const float e_phi = raw ? dph : sd;
     const float s_dot = (vxs * cd - vy * sd) / (1.f - km * e_d);
     const float e_phi_dot = omega - km * s_dot;
-    const float ke = kg[0] * e_d + kg[1] * e_d_dot + kg[2] * e_phi + kg[3] * e_phi_dot;
-    const float ff = km * (F[F_AB] - F[F_B] * kg[2] -
-                           (F[F_BCF] + F[F_A] * kg[2] / F[F_CR] - F[F_ACR]) *
-                               (F[F_M] * vxs * vxs) / F[F_AB]);
-    const float delta_cmd = -ke + ff;
-    const float steer_cmd =
-        clip(delta_cmd / F[F_MAX_STEER], -F[F_STEER_LIMIT], F[F_STEER_LIMIT]);
+    float steer_cmd;
+    if constexpr (MPC) {
+      // the MPC's u is the normalized steer: no rescale
+      const float* r0 = dsm + ii * R;
+      steer_cmd = clip(mpc_tick(r0, r0 + R, wf, e_d, e_d_dot, e_phi, e_phi_dot, km, nu,
+                                a.mpc_iters, sM, sZ, sUd, sF, sV, sU, tid, admm_ticks),
+                       -F[F_STEER_LIMIT], F[F_STEER_LIMIT]);
+    } else {
+      float kg[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kg[j] = s_tab[ii * 4 + j] * (1.f - wf) + s_tab[(ii + 1) * 4 + j] * wf;
+      const float ke = kg[0] * e_d + kg[1] * e_d_dot + kg[2] * e_phi + kg[3] * e_phi_dot;
+      const float ff = km * (F[F_AB] - F[F_B] * kg[2] -
+                             (F[F_BCF] + F[F_A] * kg[2] / F[F_CR] - F[F_ACR]) *
+                                 (F[F_M] * vxs * vxs) / F[F_AB]);
+      const float delta_cmd = -ke + ff;
+      steer_cmd = clip(delta_cmd / F[F_MAX_STEER], -F[F_STEER_LIMIT], F[F_STEER_LIMIT]);
+    }
 
     // PID with integral separation
     const float err = tick_kmh - 3.6f * hypot_j(vx, vy);
@@ -279,22 +401,46 @@ __global__ void __launch_bounds__(THREADS) tick_lqr_kernel(TickArgs a) {
     const float thr_g = stop ? 0.f : throttle;
     const float brk_g = stop ? 1.f : brake;
 
-    // kinematic bicycle with the steering actuator
+    // plant: `substeps` steps at dts with the steering actuator
     const float accel = thr_g * F[F_MAX_ACCEL] - brk_g * F[F_MAX_BRAKE];
-    const float desired = (steer_g - steer_ap) * dt / F[F_TAU_DEN];
-    const float change = clip(desired, -F[F_RATE_DT], F[F_RATE_DT]);
-    steer_ap = clip(steer_ap + change, -1.f, 1.f);
-    const float delta = clip(steer_ap, -1.f, 1.f) * F[F_MAX_STEER];
-    const float v = fmaxf(vx + accel * dt, 0.f);
-    omega = v * tanf(delta) / F[F_AB];
-    phi = phi + omega * dt;
-    const float cph = cosf(phi), sph = sinf(phi);
-    x = x + v * cph * dt;
-    y = y + v * sph * dt;
-    ax = accel * cph;
-    ay = accel * sph;
-    vx = v;
-    vy = 0.f;
+    for (int ss = 0; ss < substeps; ++ss) {
+      const float desired = (steer_g - steer_ap) * dts / F[F_TAU_DEN];
+      const float change = clip(desired, -F[F_RATE_DT], F[F_RATE_DT]);
+      steer_ap = clip(steer_ap + change, -1.f, 1.f);
+      const float delta = clip(steer_ap, -1.f, 1.f) * F[F_MAX_STEER];
+      if constexpr (DYN) {
+        // friction-limited dynamic bicycle (sim/plant.dynamic_step)
+        const float vx_safe = max_nan(vx, 0.5f);
+        const float alpha_f = (vy + F[F_A] * omega) / vx_safe - delta;
+        const float alpha_r = (vy - F[F_B] * omega) / vx_safe;
+        const float fyf = clip(F[F_CF] * alpha_f, -F[F_FZF], F[F_FZF]);
+        const float fyr = clip(F[F_CR] * alpha_r, -F[F_FZR], F[F_FZR]);
+        const float vy_dot = (fyf + fyr) / F[F_M] - vx * omega;
+        const float omega_dot = (F[F_A] * fyf - F[F_B] * fyr) / F[F_IZ];
+        const float vxn = max_nan(vx + accel * dts, 0.f);
+        const bool moving = vxn > 0.1f;
+        vy = moving ? vy + vy_dot * dts : 0.f;
+        omega = moving ? omega + omega_dot * dts : 0.f;
+        phi = phi + omega * dts;
+        const float c = cosf(phi), sn = sinf(phi);
+        x = x + (vxn * c - vy * sn) * dts;
+        y = y + (vy * c + vxn * sn) * dts;
+        ax = accel * c;
+        ay = accel * sn;
+        vx = vxn;
+      } else {
+        const float v = fmaxf(vx + accel * dts, 0.f);
+        omega = v * tanf(delta) / F[F_AB];
+        phi = phi + omega * dts;
+        const float cph = cosf(phi), sph = sinf(phi);
+        x = x + v * cph * dts;
+        y = y + v * sph * dts;
+        ax = accel * cph;
+        ay = accel * sph;
+        vx = v;
+        vy = 0.f;
+      }
+    }
 
     // obstacles advance; collision check
     bool collided = false;
@@ -337,12 +483,17 @@ __global__ void __launch_bounds__(THREADS) tick_lqr_kernel(TickArgs a) {
     a.obsxy_out[(size_t)b * 2 * K + K + k] = oy[k];
   }
   a.arrived_out[b] = arrived;
+  if constexpr (MPC) {
+    for (int i = 0; i < nu; ++i) {
+      a.mpc_z_out[(size_t)b * nu + i] = sZ[i * THREADS + tid];
+      a.mpc_ud_out[(size_t)b * nu + i] = sUd[i * THREADS + tid];
+    }
+    a.admm_out[b] = admm_ticks;
+  }
 }
 
-}  // namespace
-
-extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* iparams,
-                        void* stream) {
+TickArgs unpack(void* const* ptrs, const float* fparams, const int* iparams,
+                bool general) {
   TickArgs a;
   a.ego = (const float*)ptrs[0];
   a.pbuf = (const float*)ptrs[1];
@@ -357,7 +508,7 @@ extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* ipar
   a.arrived0 = (const bool*)ptrs[10];
   a.dest_x = (const float*)ptrs[11];
   a.dest_y = (const float*)ptrs[12];
-  a.ktab = (const float*)ptrs[13];
+  a.tab = (const float*)ptrs[13];
   a.ego_out = (float*)ptrs[14];
   a.pbuf_out = (float*)ptrs[15];
   a.pcnt_out = (int*)ptrs[16];
@@ -367,6 +518,9 @@ extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* ipar
   a.metrics = (float*)ptrs[20];
   a.lights = (const float*)ptrs[21];
   a.t0 = (const float*)ptrs[22];
+  a.mpc_z_out = general ? (float*)ptrs[23] : nullptr;
+  a.mpc_ud_out = general ? (float*)ptrs[24] : nullptr;
+  a.admm_out = general ? (int*)ptrs[25] : nullptr;
   a.B = iparams[0];
   a.K = iparams[1];
   a.NP = iparams[2];
@@ -375,12 +529,64 @@ extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* ipar
   a.n_ticks = iparams[5];
   a.n_tab = iparams[6];
   a.L = iparams[7];
+  a.substeps = general ? iparams[10] : 1;
+  a.raw = general ? iparams[11] : 0;
+  a.nu = general ? iparams[12] : 0;
+  a.mpc_iters = general ? iparams[13] : 0;
   for (int j = 0; j < F_COUNT; ++j) a.f[j] = fparams[j];
-  if (a.K > KMAX || a.NB > NBMAX || a.n_tab > TABMAX || a.ND < 2 || a.NP < 1 ||
-      a.L < 0 || (a.L > 0 && (a.lights == nullptr || a.t0 == nullptr)))
+  return a;
+}
+
+bool valid_args(const TickArgs& a) {
+  return a.K <= KMAX && a.NB <= NBMAX && a.ND >= 2 && a.NP >= 1 && a.n_tab >= 2 &&
+         a.L >= 0 && (a.L == 0 || (a.lights != nullptr && a.t0 != nullptr)) &&
+         a.substeps >= 1;
+}
+
+template <bool MPC, bool DYN>
+int launch_variant(const TickArgs& a, cudaStream_t stream) {
+  size_t smem = 0;
+  if (MPC) {
+    if (a.nu < 1 || a.nu > NUMAX) return (int)cudaErrorInvalidValue;
+    smem = sizeof(float) * ((size_t)a.n_tab * (a.nu * a.nu + 10 * a.nu) +
+                            (size_t)(a.nu * a.nu + 5 * a.nu) * THREADS);
+    cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&tick_kernel<MPC, DYN, true>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  } else if (a.n_tab > TABMAX) {
     return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (a.B + THREADS - 1) / THREADS;
+  tick_kernel<MPC, DYN, true><<<blocks, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// LQR + kinematic bicycle, one plant step a tick, sin heading error (K3,
+// K3-L with lights): iparams (B, K, NP, ND, NB, n_ticks, n_tab, L).
+extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* iparams,
+                        void* stream) {
+  TickArgs a = unpack(ptrs, fparams, iparams, false);
+  if (!valid_args(a) || a.n_tab > TABMAX) return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
   const int blocks = (a.B + THREADS - 1) / THREADS;
-  tick_lqr_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+  tick_kernel<false, false, false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Every controller / plant pair with runtime substeps and heading-error
+// convention (K5: MPC, K6: dynamic plant): iparams as tick_lqr's, then
+// (mpc, dynamic, substeps, raw_heading_error, nu, mpc_iters); ptrs as
+// tick_lqr's, then (mpc_z_out, mpc_ud_out, admm_out).
+extern "C" int tick_variant(void* const* ptrs, const float* fparams, const int* iparams,
+                            void* stream) {
+  TickArgs a = unpack(ptrs, fparams, iparams, true);
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
+  if (a.B <= 0) return 0;
+  const bool mpc = iparams[8] != 0, dyn = iparams[9] != 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mpc) return dyn ? launch_variant<true, true>(a, s) : launch_variant<true, false>(a, s);
+  return dyn ? launch_variant<false, true>(a, s) : launch_variant<false, false>(a, s);
 }

@@ -1,21 +1,24 @@
-"""Warm-started prefactored ADMM for constant-matrix QPs (counterpart of
-``emplanner_carla_tpu/ops/qp.py``: ``prefactor_constants``, the warm
-contract of ``make_prefactored_qp`` and ``warm_zero_state``).
+"""Prefactored ADMM for constant-matrix QPs (counterpart of
+``emplanner_carla_tpu/ops/qp.py``: ``prefactor_constants``, the warm and
+cold contracts of ``make_prefactored_qp``, ``warm_zero_state`` and
+``solve_box_qp``).
 
 For the planner QPs the quadratic form P and the constraint matrix A are
 fixed; only (q, l, u) vary per scenario. Everything matrix-shaped happens
 once in float64 NumPy (:func:`prefactor_constants`, a verbatim copy); a solve
-is a fixed 3-phase rho ladder of matmuls and clips on batch-first tensors:
+is a fixed 3-phase rho ladder of matmuls and clips on batch-first tensors.
+The warm solver carries the scaled-space ADMM state across replan cycles,
+the cold one starts from zero (z clipped to [l, u]) and runs the longer
+cold iteration count:
 
-    solve(q (B, n), l (B, m), u (B, m), (x_s, z, y)) -> (x, (x_s, z, y))
+    warm: solve(q (B, n), l (B, m), u (B, m), (x_s, z, y)) -> (x, (x_s, z, y))
+    cold: solve(q, l, u) -> x
 
-with the scaled-space ADMM state carried across replan cycles.
-
-The solve dispatches on the device of ``q``: a CUDA tensor launches the
+A solve dispatches on the device of ``q``: a CUDA tensor launches the
 hand-written kernel ``csrc/qp_admm.cu`` (the port of the JAX package's
-fused warm Pallas kernel, ``ops/qp_pallas.py make_pallas_qp(warm=True)``);
-a CPU tensor runs :func:`warm_ladder_torch`, the plain PyTorch version of
-the same iteration.
+fused Pallas kernel, ``ops/qp_pallas.py make_pallas_qp``; the cold solve
+hands it a zero state), a CPU tensor runs :func:`warm_ladder_torch`, the
+plain PyTorch version of the same iteration.
 """
 
 from __future__ import annotations
@@ -31,11 +34,13 @@ from emplanner_carla_tpu_torch.types import Tensor
 
 __all__ = [
     "prefactor_constants", "make_prefactored_qp", "PrefactoredQP",
-    "warm_ladder_torch", "warm_admm_kernel", "warm_zero_state",
+    "warm_ladder_torch", "warm_admm_kernel", "warm_zero_state", "solve_box_qp",
 ]
 
-# one counter per call site: the path QP and the speed QP run the same kernel
-launches = {"qp_admm_warm": 0, "qp_admm_speed": 0}
+# one counter per call site: the path QP and the speed QP, warm and cold, run
+# the same kernel
+launches = {"qp_admm_warm": 0, "qp_admm_speed": 0, "qp_admm_cold_path": 0,
+            "qp_admm_cold_speed": 0}
 
 
 def prefactor_constants(
@@ -95,13 +100,15 @@ def prefactor_constants(
 
 
 class PrefactoredQP:
-    """A warm constant-matrix solver: ``solve(q, l, u, state) -> (x, state)``.
+    """A constant-matrix solver: ``solve(q, l, u, state) -> (x, state)``
+    when ``warm``, else ``solve(q, l, u) -> x`` from the zero state.
 
     Holds the float32 constants as NumPy and their tensors per device."""
 
     def __init__(self, At, D, E, c, phases, iters_per_phase, sigma, alpha,
-                 name="qp_admm_warm"):
+                 name="qp_admm_warm", warm=True):
         self.name = name                  # key of its launch counter
+        self.warm = warm
         self.At = At                      # (m, n)
         self.D = D                        # (n,)
         self.E = E                        # (m,)
@@ -124,10 +131,16 @@ class PrefactoredQP:
             )
         return self._dev[key]
 
-    def __call__(self, q: Tensor, l: Tensor, u: Tensor, state):
+    def __call__(self, q: Tensor, l: Tensor, u: Tensor, state=None):
+        if not self.warm:
+            # the cold start is the warm ladder from zeros: z is clipped to
+            # [l, u] at entry
+            state = warm_zero_state(self.n, self.m, q.shape[0], q.device)
         if q.is_cuda:
-            return warm_admm_kernel(self, q, l, u, state)
-        return warm_ladder_torch(self, q, l, u, state)
+            out = warm_admm_kernel(self, q, l, u, state)
+        else:
+            out = warm_ladder_torch(self, q, l, u, state)
+        return out if self.warm else out[0]
 
 
 def make_prefactored_qp(
@@ -140,18 +153,21 @@ def make_prefactored_qp(
     sigma: float = 1e-6,
     rho_eq_scale: float = 1e3,
     alpha: float = 1.6,
+    warm: bool = False,
     warm_iters_per_phase: int | None = None,
     name: str = "qp_admm_warm",
 ) -> PrefactoredQP:
-    """Build the warm solver of the QP family min 1/2 x'Px + q'x,
-    l <= Ax <= u (the JAX factory with ``warm=True``). Seed the first call
-    with :func:`warm_zero_state`. ``name`` keys the call site's launch
-    counter in :data:`launches`."""
+    """Build a solver of the QP family min 1/2 x'Px + q'x, l <= Ax <= u (the
+    JAX factory): with ``warm`` it runs ``warm_iters_per_phase`` (default
+    ``iters_per_phase``) from the carried state, seeded with
+    :func:`warm_zero_state`; without, ``iters_per_phase`` from zero.
+    ``name`` keys the call site's launch counter in :data:`launches`."""
     _, At, D, E, c, phases = prefactor_constants(
         P_np, A_np, eq_mask_np, q_typical, rho_schedule, sigma, rho_eq_scale
     )
-    iters = warm_iters_per_phase if warm_iters_per_phase is not None else iters_per_phase
-    return PrefactoredQP(At, D, E, c, phases, iters, sigma, alpha, name)
+    iters = (warm_iters_per_phase
+             if warm and warm_iters_per_phase is not None else iters_per_phase)
+    return PrefactoredQP(At, D, E, c, phases, iters, sigma, alpha, name, warm)
 
 
 def warm_ladder_torch(solver: PrefactoredQP, q, l, u, state):
@@ -190,8 +206,9 @@ def _check(t: Tensor, shape, name: str) -> None:
 
 
 def warm_admm_kernel(solver: PrefactoredQP, q, l, u, state):
-    """Launch ``csrc/qp_admm.cu`` on the current stream: the whole warm
-    ladder (scaling, 3 phases x ``iters``, unscaling) in one kernel."""
+    """Launch ``csrc/qp_admm.cu`` on the current stream: the whole ladder
+    (scaling, 3 phases x ``iters``, unscaling) from ``state`` in one kernel,
+    counted under the solver's call site."""
     require_fp32_matmul(q)
     B = q.shape[0]
     n, m = solver.n, solver.m
@@ -227,3 +244,21 @@ def warm_zero_state(n: int, m: int, batch: int, device="cpu"):
     """Initial scaled-space ADMM state (x_s, z, y), zeros of (B, n)/(B, m)."""
     z = lambda k: torch.zeros((batch, k), dtype=torch.float32, device=device)  # noqa: E731
     return (z(n), z(m), z(m))
+
+
+def solve_box_qp(H: Tensor, f: Tensor, lb: Tensor, ub: Tensor, iters: int = 80,
+                 rho: float = 1.0) -> Tensor:
+    """Box-constrained QP min 1/2 x'Hx + f'x, lb <= x <= ub, by ADMM with a
+    prefactored x-update (the JAX package's ``solve_box_qp``). H (B, n, n),
+    f (B, n), bounds broadcastable to f. Returns the box-feasible iterate
+    z (B, n). Plain PyTorch: the per-tick MPC of ``mpc_steer_exact``."""
+    require_fp32_matmul(f)
+    n = f.shape[-1]
+    M = torch.linalg.inv(H + rho * torch.eye(n, dtype=f.dtype, device=f.device))
+    z = torch.clamp(torch.zeros_like(f), lb, ub)
+    u = torch.zeros_like(f)
+    for _ in range(iters):
+        x = (M @ (rho * (z - u) - f)[..., None])[..., 0]
+        z = torch.clamp(x + u, lb, ub)
+        u = u + x - z
+    return z

@@ -33,7 +33,7 @@ class PathPlanResult(NamedTuple):
     feasible: Tensor    # (B,) DP found a collision-free homotopy
     path_s: Tensor      # (B, n) stations of the target in local-line s
     path_l: Tensor      # (B, n) lateral offsets
-    qp_state: tuple     # path-QP ADMM warm state (x_s, z, y)
+    qp_state: tuple     # path-QP ADMM warm state (x_s, z, y), None if cold
     obs_dropped: Tensor  # (B,) int32 in-window slots dropped by dp_top_m
 
 
@@ -54,8 +54,11 @@ def warm_init(cfg: EMConfig, batch: int, device="cpu", full: bool = False):
 
 
 def plan_path_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
-                    prev_match_index: Tensor, cfg: EMConfig, qp_warm,
+                    prev_match_index: Tensor, cfg: EMConfig, qp_warm=None,
                     first_run: bool = False) -> PathPlanResult:
+    """One path replan. ``qp_warm`` is the path QP's carried ADMM state
+    (x_s, z, y); None solves the QP cold, the open-loop plan of BASELINE
+    config 2, and leaves ``qp_state`` None."""
     rl, pp = cfg.refline, cfg.path
 
     # 1. plan-start prediction
@@ -118,7 +121,7 @@ def plan_path_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
     st_s = es[:, :: pp.qp_downsample]
     st_l = el[:, :: pp.qp_downsample]
 
-    # 8. corridor + warm QP
+    # 8. corridor + QP (warm from the carried state, or cold)
     l_min, l_max = path_qp.corridor(st_s, st_l, all_s, all_l, all_valid, pp)
     spacing = float(pp.sampling_res * pp.qp_downsample)
     qp_l, qp_dl, qp_ddl, qp_state = path_qp.path_qp(
@@ -136,21 +139,22 @@ def plan_path_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
 class FullPlanResult(NamedTuple):
     path: PathPlanResult
     trajectory: Trajectory
-    speed_qp_state: tuple       # speed-QP ADMM warm state (x_s, z, y)
+    speed_qp_state: tuple       # speed-QP ADMM warm state (x_s, z, y), None if cold
     # (B,) int32: valid ST segments dropped by st_top_m plus the path DP's
     # dp_top_m drops, this cycle
     segments_dropped: Tensor
 
 
 def plan_full_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
-                    prev_match_index: Tensor, cfg: EMConfig, qp_warm,
+                    prev_match_index: Tensor, cfg: EMConfig, qp_warm=None,
                     first_run: bool = False) -> FullPlanResult:
     """Path planning + S-T speed planning, the full EM cycle. ``qp_warm`` is
-    (path_qp_state, speed_qp_state). After the path stage: the speed-plan
-    start on the new path, the dynamic obstacles against it, the ST graph
-    compressed to the st_top_m segments (valid first, earliest time-in), the
-    speed DP, the convex space, the warm speed QP, densify and merge."""
-    path_warm, speed_warm = qp_warm
+    (path_qp_state, speed_qp_state), either of them None for a cold solve,
+    or None for both. After the path stage: the speed-plan start on the new
+    path, the dynamic obstacles against it, the ST graph compressed to the
+    st_top_m segments (valid first, earliest time-in), the speed DP, the
+    convex space, the speed QP, densify and merge."""
+    path_warm, speed_warm = qp_warm if qp_warm is not None else (None, None)
     res = plan_path_cycle(global_path, ego, obstacles, prev_match_index, cfg,
                           qp_warm=path_warm, first_run=first_run)
     target = res.target
@@ -173,7 +177,7 @@ def plan_full_cycle(global_path: Path, ego: EgoState, obstacles: Obstacles,
         obstacles.vy[:, d0:], target, path_arc,
     )
 
-    # 3. ST graph -> top-M -> DP -> convex space -> warm QP
+    # 3. ST graph -> top-M -> DP -> convex space -> QP
     seg = speed_planner.st_graph(d_s, d_l, d_sdot, d_ldot, dyn_mask[:, d0:], sp)
     seg, st_dropped = speed_planner.top_m_segments(seg, sp.st_top_m)
     segments_dropped = (st_dropped + res.obs_dropped).to(torch.int32)

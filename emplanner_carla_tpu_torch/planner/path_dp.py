@@ -25,7 +25,7 @@ import torch
 from emplanner_carla_tpu_torch import cuda
 from emplanner_carla_tpu_torch.config import PathPlanConfig
 from emplanner_carla_tpu_torch.ops import quintic
-from emplanner_carla_tpu_torch.types import Tensor
+from emplanner_carla_tpu_torch.types import Tensor, tdiv
 
 launches = {"path_obs_costs": 0}
 
@@ -118,12 +118,6 @@ def transition_obstacle_costs(obs_s, obs_l, obs_valid, plan_start_s,
     )
 
 
-def _tdiv(a: Tensor, b: float) -> Tensor:
-    """IEEE division by a constant (PyTorch's CUDA division by a Python
-    scalar multiplies by its reciprocal, which rounds differently)."""
-    return a / torch.full_like(a, b)
-
-
 def _transition_obstacle_costs_torch(obs_s, obs_l, obs_valid, plan_start_s,
                                      cfg: PathPlanConfig) -> Tensor:
     """Plain PyTorch version, (B, cols-1, rows, rows).
@@ -147,9 +141,9 @@ def _transition_obstacle_costs_torch(obs_s, obs_l, obs_valid, plan_start_s,
     )
     B, K = obs_s.shape
     r = obs_s - plan_start_s[:, None]                        # (B, K)
-    n1 = torch.floor(_tdiv(r + cfg.safe_dist, h))
+    n1 = torch.floor(tdiv(r + cfg.safe_dist, h))
     cand_n = torch.stack([n1 - 1.0, n1], dim=1)              # (B, 2, K)
-    n_lo = _tdiv(r - cfg.safe_dist - span, h)
+    n_lo = tdiv(r - cfg.safe_dist - span, h)
     cand_ok = (
         (cand_n >= 1.0)
         & (cand_n <= float(cols - 1))

@@ -1,10 +1,10 @@
 """Convex corridor + piecewise-jerk path QP (counterpart of
-``emplanner_carla_tpu/planner/path_qp.py``, warm solves only).
+``emplanner_carla_tpu/planner/path_qp.py``).
 
 The constant matrices are built once in NumPy (:func:`_qp_constants`, a
-verbatim copy); per cycle the work is one batched warm ADMM solve, which
-runs the CUDA kernel ``csrc/qp_admm.cu`` for CUDA tensors (see
-``ops/qp.py``).
+verbatim copy); per cycle the work is one batched ADMM solve, warm from the
+carried state in the closed loops or cold in the open-loop plan, which runs
+the CUDA kernel ``csrc/qp_admm.cu`` for CUDA tensors (see ``ops/qp.py``).
 """
 
 from __future__ import annotations
@@ -135,15 +135,18 @@ def _qp_constants(n: int, ds: float, cfg: PathPlanConfig):
 
 
 @lru_cache(maxsize=None)
-def _solver_for(n: int, ds: float, cfg: PathPlanConfig):
-    """Prefactored warm solver for this (n, ds, cfg) family."""
+def _solver_for(n: int, ds: float, cfg: PathPlanConfig, warm: bool = True):
+    """Prefactored solver for this (n, ds, cfg) family: warm (launches
+    counted as qp_admm_warm) or cold (qp_admm_cold_path)."""
     P_np, A_np, eq_mask, front_index, back_index = _qp_constants(n, ds, cfg)
     q_typ = np.zeros(3 * n + n)
     q_typ[0 : 3 * n : 3] = -2.0 * cfg.w_qp_centre * 2.0  # centre offsets ~ 2 m
     solve = qp.make_prefactored_qp(
         P_np, A_np, eq_mask, q_typical=q_typ,
         iters_per_phase=max(2 * cfg.admm_iters // 3, 60),
+        warm=warm,
         warm_iters_per_phase=max(cfg.warm_admm_iters // 3, 1),
+        name="qp_admm_warm" if warm else "qp_admm_cold_path",
     )
     return solve, front_index, back_index
 
@@ -160,13 +163,15 @@ def warm_state_init(n: int, batch: int, device="cpu"):
 
 
 def path_qp(l_min, l_max, plan_start_l, plan_start_dl, plan_start_ddl,
-            cfg: PathPlanConfig, ds: float, warm_state):
+            cfg: PathPlanConfig, ds: float, warm_state=None):
     """Smooth l(s) inside the corridor (``Quadratic_planning``), warm-started
-    from the carried ADMM state. l_min/l_max (B, n); plan start (B,).
-    Returns (l, dl, ddl) each (B, n) and the new state."""
+    from the carried ADMM state, or cold from zero when ``warm_state`` is
+    None. l_min/l_max (B, n); plan start (B,). Returns (l, dl, ddl) each
+    (B, n) and the new state (None for a cold solve)."""
     B, n = l_min.shape
     dev = l_min.device
-    solve, front_index, back_index = _solver_for(n, ds, cfg)
+    warm = warm_state is not None
+    solve, front_index, back_index = _solver_for(n, ds, cfg, warm)
     nv = 3 * n
 
     centre = 0.5 * (l_min + l_max)
@@ -189,5 +194,8 @@ def path_qp(l_min, l_max, plan_start_l, plan_start_dl, plan_start_ddl,
     l = torch.cat([zc, torch.full((B, 4 * n), -BIG, dtype=torch.float32, device=dev),
                    start, end, torch.zeros((B, n), dtype=torch.float32, device=dev)], 1)
 
-    x, new_state = solve(q, l.contiguous(), u.contiguous(), warm_state)
+    if warm:
+        x, new_state = solve(q, l.contiguous(), u.contiguous(), warm_state)
+    else:
+        x, new_state = solve(q, l.contiguous(), u.contiguous()), None
     return x[:, 0:nv:3], x[:, 1:nv:3], x[:, 2:nv:3], new_state

@@ -36,23 +36,11 @@ from emplanner_carla_tpu_torch import cuda
 from emplanner_carla_tpu_torch.config import SpeedPlanConfig
 from emplanner_carla_tpu_torch.ops import interp, qp
 from emplanner_carla_tpu_torch.precision import require_fp32_matmul
-from emplanner_carla_tpu_torch.types import STSegments, Tensor
+from emplanner_carla_tpu_torch.types import STSegments, Tensor, sdiv, tdiv
 
 BIG = 1e8
 
 launches = {"speed_dp": 0}
-
-
-def _tdiv(a: Tensor, b: float) -> Tensor:
-    """IEEE quotient a / b on every device (PyTorch's CUDA division by a
-    Python scalar multiplies by the reciprocal)."""
-    return a / torch.full_like(a, b)
-
-
-def _sdiv(a: float, b: Tensor) -> Tensor:
-    """IEEE quotient a / b of a constant by a tensor (``a / t`` in PyTorch
-    is ``t.reciprocal() * a``)."""
-    return torch.full_like(b, a) / b
 
 
 def speed_plan_start(vx, vy, ax, ay, heading):
@@ -70,8 +58,8 @@ def st_graph(obs_s, obs_l, obs_s_dot, obs_l_dot, valid,
     crossing = obs_l_dot.abs() >= cfg.l_dot_gate
     l_dot_safe = torch.where(crossing, obs_l_dot, 1.0)
     t_zero = -obs_l / l_dot_safe
-    t_b1 = _sdiv(cfg.lateral_gate, l_dot_safe) + t_zero
-    t_b2 = _sdiv(-cfg.lateral_gate, l_dot_safe) + t_zero
+    t_b1 = sdiv(cfg.lateral_gate, l_dot_safe) + t_zero
+    t_b2 = sdiv(-cfg.lateral_gate, l_dot_safe) + t_zero
     t_max = torch.maximum(t_b1, t_b2)
     t_min = torch.minimum(t_b1, t_b2)
     in_window = (t_max >= cfg.t_min_gate) & (t_min <= cfg.t_max_gate)
@@ -157,7 +145,7 @@ def _seg_distance(s, t, si, so, ti, to) -> Tensor:
     d2_sq = v2s * v2s + v2t * v2t
     nrm_sq = (v3s * v3s + v3t * v3t) + 1e-24
     cross = v1s * v3t - v1t * v3s
-    d_perp_sq = cross * cross * _sdiv(1.0, nrm_sq)
+    d_perp_sq = cross * cross * sdiv(1.0, nrm_sq)
     p1 = v1s * v3s + v1t * v3t
     p2 = v2s * v3s + v2t * v3t
     endpoint = (p1 > 0) == (p2 > 0)
@@ -218,7 +206,7 @@ def _edge_obs_tensors(seg: STSegments, cfg: SpeedPlanConfig):
     v3s = so - si                                                    # (B, K)
     v3t = to - ti
     nrm = (v3s * v3s + v3t * v3t) + 1e-24
-    inv = _sdiv(1.0, nrm)
+    inv = sdiv(1.0, nrm)
     sg = g.s_grid
     cost_c = None
     for q in range(1, m - 1):
@@ -296,7 +284,7 @@ def _speed_dp_torch(seg: STSegments, v0: Tensor,
     tops = [cost[:, -1]]
     args = []
     for c in range(n_t - 1):
-        accel = _tdiv(g.dv[None, :, :] - sdot[:, :, None], cfg.t_step)
+        accel = tdiv(g.dv[None, :, :] - sdot[:, :, None], cfg.t_step)
         total = (cost[:, :, None] + static[:, c]) + _acc_cost(accel, cfg)
         best = torch.argmin(total, dim=1)                            # (B, j)
         cost = torch.gather(total, 1, best[:, None, :])[:, 0]
@@ -379,7 +367,7 @@ def convex_space(dp: SpeedDPResult, seg: STSegments, path_s: Tensor,
     s_lb = torch.zeros((B, n_t), dtype=torch.float32, device=dev)
     s_ub = torch.full((B, n_t), BIG, dtype=torch.float32, device=dev)
     kappa_at = interp.interp(dp.s, path_s, path_kappa.abs())
-    s_dot_ub = torch.sqrt(_sdiv(cfg.max_lateral_accel, kappa_at + 1e-10))
+    s_dot_ub = torch.sqrt(sdiv(cfg.max_lateral_accel, kappa_at + 1e-10))
     s_dot_ub = torch.where(dp.valid, s_dot_ub, BIG)
     s_dot_lb = torch.zeros((B, n_t), dtype=torch.float32, device=dev)
 
@@ -455,8 +443,9 @@ def _speed_qp_constants(cfg: SpeedPlanConfig):
 
 
 @lru_cache(maxsize=None)
-def _speed_solver(cfg: SpeedPlanConfig):
-    """The warm solver of the speed-QP family (counted as qp_admm_speed)."""
+def _speed_solver(cfg: SpeedPlanConfig, warm: bool = True):
+    """The solver of the speed-QP family: warm (launches counted as
+    qp_admm_speed) or cold (qp_admm_cold_speed)."""
     P_np, A_np, eq_mask = _speed_qp_constants(cfg)
     n = cfg.n_t + 1
     q_typ = np.zeros(3 * n)
@@ -464,8 +453,9 @@ def _speed_solver(cfg: SpeedPlanConfig):
     return qp.make_prefactored_qp(
         P_np, A_np, eq_mask, q_typical=q_typ,
         iters_per_phase=max(2 * cfg.admm_iters // 3, 60),
+        warm=warm,
         warm_iters_per_phase=max(cfg.warm_admm_iters // 3, 1),
-        name="qp_admm_speed",
+        name="qp_admm_speed" if warm else "qp_admm_cold_speed",
     )
 
 
@@ -493,7 +483,7 @@ def _envelope(v0: Tensor, a0: Tensor, a_limit: float, cfg: SpeedPlanConfig):
     for _ in range(cfg.n_t):
         a_next = torch.full_like(v0, a_limit)
         if a_limit < 0.0:
-            a_next = torch.maximum(a_next, _tdiv(-2.0 * v_i, dt) - a_i)
+            a_next = torch.maximum(a_next, tdiv(-2.0 * v_i, dt) - a_i)
         v_next = torch.clamp(v_i + dt * 0.5 * (a_i + a_next), min=0.0)
         s_next = s_i + dt * v_i + dt * dt / 3.0 * a_i + dt * dt / 6.0 * a_next
         s_i, v_i, a_i = s_next, v_next, a_next
@@ -505,19 +495,18 @@ def _envelope(v0: Tensor, a0: Tensor, a_limit: float, cfg: SpeedPlanConfig):
 def speed_qp(plan_start_s_dot, plan_start_s_dot2, s_lb, s_ub, s_dot_lb,
              s_dot_ub, cfg: SpeedPlanConfig, warm_state=None):
     """Smooth s(t) inside the convex space, warm-started from the carried
-    ADMM state. Plan start (B,), bounds (B, n_t). Returns (s, s_dot,
-    s_dot2) each (B, n_t + 1), the knot times t (n_t + 1,) and the new
-    state."""
-    if warm_state is None:
-        raise NotImplementedError(
-            "the cold speed QP (make_prefactored_qp(warm=False), kernel K1c) "
-            "is ported in a later slice"
-        )
+    ADMM state, or cold from zero when ``warm_state`` is None. Plan start
+    (B,), bounds (B, n_t). Returns (s, s_dot, s_dot2) each (B, n_t + 1),
+    the knot times t (n_t + 1,) and the new state (None for a cold
+    solve)."""
     q, l, u = speed_qp_problem(plan_start_s_dot, plan_start_s_dot2, s_lb, s_ub,
                                s_dot_lb, s_dot_ub, cfg)
     t = torch.arange(cfg.n_t + 1, dtype=torch.float32,
                      device=q.device) * cfg.t_step
-    x, new_state = _speed_solver(cfg)(q, l, u, warm_state)
+    if warm_state is None:
+        x, new_state = _speed_solver(cfg, warm=False)(q, l, u), None
+    else:
+        x, new_state = _speed_solver(cfg)(q, l, u, warm_state)
     return x[:, 0::3], x[:, 1::3], x[:, 2::3], t, new_state
 
 

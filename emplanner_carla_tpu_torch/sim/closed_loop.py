@@ -12,9 +12,10 @@ CPU tensors run :func:`_full_ticks_base`, its plain PyTorch version. Both
 loops take optional traffic lights, whose red-light cap the kernel computes
 in its lights branch.
 
-Ported: LQR lateral control, the kinematic plant, one plant step per tick,
-with or without traffic lights. MPC, the dynamic plant, ``substeps > 1``
-and ``raw_heading_error`` raise ``NotImplementedError``.
+Every control and plant variant runs in the kernel: LQR or the condensed
+MPC (whose box-ADMM warm state the kernel carries across the cycle's
+ticks), the kinematic or the dynamic bicycle, ``substeps`` plant steps a
+tick and the raw heading error of the feedforward MPC variant.
 """
 
 from __future__ import annotations
@@ -35,11 +36,17 @@ from emplanner_carla_tpu_torch.sim.loop_constants import (
     ACC_HEADWAY, ACC_STANDOFF, COLLISION_RADIUS,
 )
 from emplanner_carla_tpu_torch.types import (
-    EgoState, Obstacles, Path, Tensor, hypot, tree_to,
+    EgoState, Obstacles, Path, Tensor, hypot, tdiv, tree_to,
 )
 
-# the lights branch (K3-L) counts apart from the lights-free launches
-launches = {"tick_lqr": 0, "tick_lqr_lights": 0}
+# launches of the tick kernel by controller and plant: "tick_lqr" and
+# "tick_lqr_lights" count the LQR + kinematic entry point without and with
+# traffic lights (K3, K3-L), "tick_{lqr,mpc}_{kinematic,dynamic}" the other
+# instantiations (K5: MPC, K6: dynamic plant) and LQR + kinematic with
+# substeps > 1 or the raw heading error
+launches = {"tick_lqr": 0, "tick_lqr_lights": 0, "tick_lqr_kinematic": 0,
+            "tick_lqr_dynamic": 0, "tick_mpc_kinematic": 0, "tick_mpc_dynamic": 0}
+NU_MAX = 16  # MPC decision variables the tick kernel holds
 
 
 class TickMetrics(NamedTuple):
@@ -66,12 +73,6 @@ class LoopCarry(NamedTuple):
     # (path_qp_state, speed_qp_state or None): the planner QPs' ADMM state
     # carried across cycles (the speed QP's in simulate_full only)
     qp_warm: tuple
-
-
-def check_supported(cfg: EMConfig) -> None:
-    """Raise NotImplementedError for a configuration not ported yet."""
-    vehicle.check_supported(cfg.control)
-    plant.check_supported(cfg.plant)
 
 
 def _advance_obstacles(obs: Obstacles, dt: float) -> Obstacles:
@@ -117,6 +118,16 @@ def _lateral_error(ego: EgoState, target: Path) -> Tensor:
     return -ex * torch.sin(tr) + ey * torch.cos(tr)
 
 
+class MPCTicks(NamedTuple):
+    """The MPC's state after a cycle's ticks, each (B, nu), and (B,) int32
+    the number of ticks in which the lane's u* left the box and ran the box
+    ADMM (the work the kernel's bound counts)."""
+
+    z: Tensor
+    u_d: Tensor
+    admm_ticks: Tensor
+
+
 def _full_ticks_base(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
                      target, arrived, feas, plan_ok, dest_x, dest_y,
                      cfg: EMConfig, lights=None, t0=None):
@@ -125,14 +136,22 @@ def _full_ticks_base(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
     ``lights`` (a TrafficLights of (B, L), or None) caps each tick's speed
     at the nearest red stop line ahead at absolute time t0 (B,) + t_rel;
     with no valid light the cap is +inf and the loop is the lights-free one.
+    Under MPC the box-ADMM warm state starts the cycle at zeros (the
+    controller rebind) and is carried from tick to tick.
     Returns (ego', pid_buffer', pid_count', pid_last', obs', arrived',
-    TickMetrics of (B, plan_every) without segments_dropped)."""
-    check_supported(cfg)
+    TickMetrics of (B, plan_every) without segments_dropped, MPCTicks or
+    None under LQR)."""
     lp = cfg.loop
     dt = cfg.plant.dt
     nd = tspeed.shape[-1]
     t_dx = ttime[1] - ttime[0]
-    cs = vehicle.ControllerState(pid.PIDState(pid_buf, pid_cnt, pid_last))
+    B = ego.x.shape[0]
+    mpc = cfg.control.kind == "MPC"
+    cs = vehicle.ControllerState(
+        pid.PIDState(pid_buf, pid_cnt, pid_last),
+        vehicle.mpc_zero_state(cfg.control, B, ego.x.device) if mpc else None,
+    )
+    admm_ticks = torch.zeros(B, dtype=torch.int32, device=ego.x.device)
     chans = [[] for _ in range(8)]
     for i in range(lp.plan_every):
         t_rel = torch.tensor(float(i + 1), dtype=torch.float32,
@@ -148,16 +167,18 @@ def _full_ticks_base(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
         d_lat = -dxo * uy[:, None] + dyo * ux[:, None]
         lead = obs.valid & (d_long > 0.0) & (d_lat.abs() < 2.0)
         d_lead = torch.where(lead, d_long, float("inf")).min(1).values
-        v_cap = torch.clamp((d_lead - ACC_STANDOFF) / ACC_HEADWAY, min=0.0)
+        v_cap = torch.clamp(tdiv(d_lead - ACC_STANDOFF, ACC_HEADWAY), min=0.0)
         if lights is not None:
             v_cap = torch.minimum(
                 v_cap, traffic_light.red_light_cap(ego, lights, t0 + t_rel)
             )
         tick_target_kmh = 3.6 * torch.minimum(plan_speed, v_cap)
 
-        steer, throttle, brake, cs = vehicle.run_step(
+        steer, throttle, brake, cs, ran = vehicle.control_step(
             ego, target, cs, tick_target_kmh, cfg.vehicle, cfg.control
         )
+        if ran is not None:
+            admm_ticks += ran.to(torch.int32)
         arrived = arrived | (hypot(ego.x - dest_x, ego.y - dest_y) < lp.arrival_dist)
         stop = arrived | ~plan_ok
         steer = torch.where(stop, 0.0, steer)
@@ -175,7 +196,8 @@ def _full_ticks_base(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
             ch.append(v)
     metrics = [torch.stack(ch, 1) for ch in chans]
     p = cs.pid
-    return ego, p.buffer, p.count, p.last_error, obs, arrived, metrics
+    mpc_out = MPCTicks(*cs.mpc, admm_ticks) if mpc else None
+    return ego, p.buffer, p.count, p.last_error, obs, arrived, metrics, mpc_out
 
 
 def _need(t: Tensor, shape, dtype, name: str) -> None:
@@ -186,13 +208,46 @@ def _need(t: Tensor, shape, dtype, name: str) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def tick_kernel_name(cfg: EMConfig, lights=None) -> str:
+    """The launch counter of the tick kernel instantiation ``cfg`` runs:
+    the LQR + kinematic entry point (one plant step a tick, sin heading
+    error) counts as "tick_lqr" or, with lights, "tick_lqr_lights"; every
+    other configuration as "tick_{lqr,mpc}_{kinematic,dynamic}"."""
+    ctrl = "mpc" if cfg.control.kind == "MPC" else "lqr"
+    plant_kind = "kinematic" if cfg.plant.kind == "kinematic" else "dynamic"
+    if (ctrl, plant_kind) == ("lqr", "kinematic") and cfg.plant.substeps == 1 \
+            and not cfg.control.raw_heading_error:
+        return "tick_lqr_lights" if lights is not None else "tick_lqr"
+    return f"tick_{ctrl}_{plant_kind}"
+
+
+def _kernel_fparams(cfg: EMConfig, v0: float, dv: float) -> list:
+    """The tick kernel's float parameters, in the order of ``csrc/tick_lqr.cu``'s
+    F_ enum: host products in float64, rounded to float32 once by ctypes, as
+    the JAX package's Python constants are."""
+    vp, cc, pc = cfg.vehicle, cfg.control, cfg.plant
+    a, b = vp.a, vp.b
+    dt_sub = pc.dt / pc.substeps
+    fzf, fzr = plant.axle_force_caps(vp)
+    return [
+        pc.dt, ACC_STANDOFF, ACC_HEADWAY, cc.min_vx, cc.ts_predict,
+        v0, dv, a, b, a + b, b / vp.cf, a / vp.cr, vp.cr, vp.mass,
+        vp.max_steer_rad, cc.steer_limit, cc.kp, cc.ki, cc.kd, cc.pid_dt,
+        cc.integral_sep_threshold, cfg.loop.arrival_dist, vp.max_accel,
+        vp.max_brake_decel, max(vp.steer_tau, dt_sub), vp.steer_rate * dt_sub,
+        COLLISION_RADIUS, traffic_light.STOP_STANDOFF, traffic_light.STOP_HEADWAY,
+        traffic_light.STOP_LAT_GATE, dt_sub, vp.cf, vp.iz, fzf, fzr,
+    ]
+
+
 def run_ticks_kernel(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
                      target, arrived, feas, plan_ok, dest_x, dest_y,
                      cfg: EMConfig, lights=None, t0=None):
     """Launch ``csrc/tick_lqr.cu`` for one plan cycle; same contract as
-    :func:`_full_ticks_base`. Without lights the kernel skips its lights
-    branch."""
-    check_supported(cfg)
+    :func:`_full_ticks_base`. LQR + kinematic with one plant step a tick
+    and the sin heading error goes to the kernel's ``tick_lqr`` entry point
+    (K3, K3-L), every other configuration to ``tick_variant`` (K5, K6).
+    Without lights the kernel skips its lights branch."""
     dev = ego.x.device
     B = ego.x.shape[0]
     K = obs.x.shape[1]
@@ -219,7 +274,16 @@ def run_ticks_kernel(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
     else:
         L, tl_ptrs = 0, [0, 0]
     vp, cc = cfg.vehicle, cfg.control
-    v0, dv, table = lateral.gain_table_on(vp, cc, str(dev))
+    mpc = cc.kind == "MPC"
+    nu = cc.mpc_n * cc.mpc_p if mpc else 0
+    if mpc:
+        if nu > NU_MAX:
+            raise ValueError(f"the tick kernel holds at most {NU_MAX} MPC "
+                             f"variables, got mpc_n * mpc_p = {nu}")
+        v0, dv, tabs = lateral.mpc_tables_on(vp, cc, str(dev))
+        table = tabs["packed"]
+    else:
+        v0, dv, table = lateral.gain_table_on(vp, cc, str(dev))
     for t, shp, dt_, nm in (
         (ego_in, (B, 9), torch.float32, "ego"),
         (pid_buf, (B, NB), torch.float32, "pid_buffer"),
@@ -234,43 +298,44 @@ def run_ticks_kernel(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime,
         (dest_y, (B,), torch.float32, "dest_y"),
     ):
         _need(t, shp, dt_, nm)
-    ego_out = torch.empty((B, 9), dtype=torch.float32, device=dev)
-    pbuf_out = torch.empty((B, NB), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ego_out = torch.empty((B, 9), **f32)
+    pbuf_out = torch.empty((B, NB), **f32)
     pcnt_out = torch.empty((B,), dtype=torch.int32, device=dev)
-    plast_out = torch.empty((B,), dtype=torch.float32, device=dev)
-    obsxy_out = torch.empty((B, 2, K), dtype=torch.float32, device=dev)
+    plast_out = torch.empty((B,), **f32)
+    obsxy_out = torch.empty((B, 2, K), **f32)
     arr_out = torch.empty((B,), dtype=torch.bool, device=dev)
-    metrics = torch.empty((8, B, T), dtype=torch.float32, device=dev)
+    metrics = torch.empty((8, B, T), **f32)
+    z_out = torch.empty((B, max(nu, 1)), **f32)
+    ud_out = torch.empty_like(z_out)
+    admm_out = torch.empty((B,), dtype=torch.int32, device=dev)
 
-    a, b = vp.a, vp.b
-    fparams = [
-        cfg.plant.dt, ACC_STANDOFF, ACC_HEADWAY, cc.min_vx, cc.ts_predict,
-        v0, dv, a, b, a + b, b / vp.cf, a / vp.cr, vp.cr, vp.mass,
-        vp.max_steer_rad, cc.steer_limit, cc.kp, cc.ki, cc.kd, cc.pid_dt,
-        cc.integral_sep_threshold, cfg.loop.arrival_dist, vp.max_accel,
-        vp.max_brake_decel, max(vp.steer_tau, cfg.plant.dt),
-        vp.steer_rate * cfg.plant.dt, COLLISION_RADIUS,
-        traffic_light.STOP_STANDOFF, traffic_light.STOP_HEADWAY,
-        traffic_light.STOP_LAT_GATE,
-    ]
     ptrs = [ego_in, pid_buf, pid_cnt, pid_last, obs_in, tspeed, ttime, tgt_in,
             feas, plan_ok, arrived, dest_x, dest_y, table, ego_out, pbuf_out,
             pcnt_out, plast_out, obsxy_out, arr_out, metrics]
-    p_arr = (ctypes.c_void_p * (len(ptrs) + 2))(
-        *[t.data_ptr() for t in ptrs], *tl_ptrs)
+    p_arr = (ctypes.c_void_p * (len(ptrs) + 5))(
+        *[t.data_ptr() for t in ptrs], *tl_ptrs, z_out.data_ptr(),
+        ud_out.data_ptr(), admm_out.data_ptr())
+    fparams = _kernel_fparams(cfg, v0, dv)
     f_arr = (ctypes.c_float * len(fparams))(*fparams)
-    i_arr = (ctypes.c_int * 8)(B, K, NP, ND, NB, T, table.shape[0], L)
-    fn = cuda.function("tick_lqr", "tick_lqr", (ctypes.c_void_p,) * 4)
+    name = tick_kernel_name(cfg, lights)
+    i_arr = (ctypes.c_int * 14)(
+        B, K, NP, ND, NB, T, table.shape[0], L, int(mpc),
+        int(cfg.plant.kind != "kinematic"), cfg.plant.substeps,
+        int(cc.raw_heading_error), nu, cc.mpc_warm_admm_iters)
+    symbol = "tick_lqr" if name in ("tick_lqr", "tick_lqr_lights") else "tick_variant"
+    fn = cuda.function("tick_lqr", symbol, (ctypes.c_void_p,) * 4)
     err = fn(p_arr, f_arr, i_arr, cuda.stream_of(ego_in))
-    cuda.check(err, "tick_lqr")
-    launches["tick_lqr_lights" if L > 0 else "tick_lqr"] += 1
+    cuda.check(err, symbol)
+    launches[name] += 1
 
     ego_n = EgoState(*ego_out.unbind(1))
     obs_n = obs._replace(x=obsxy_out[:, 0], y=obsxy_out[:, 1])
     m = list(metrics.unbind(0))
     for j in (5, 6, 7):
         m[j] = m[j] > 0.5
-    return ego_n, pbuf_out, pcnt_out, plast_out, obs_n, arr_out, m
+    mpc_out = MPCTicks(z_out, ud_out, admm_out) if mpc else None
+    return ego_n, pbuf_out, pcnt_out, plast_out, obs_n, arr_out, m, mpc_out
 
 
 def run_ticks(*args, **kw):
@@ -279,6 +344,13 @@ def run_ticks(*args, **kw):
     if ego.x.is_cuda:
         return run_ticks_kernel(*args, **kw)
     return _full_ticks_base(*args, **kw)
+
+
+def _controller_after(buf, cnt, last, mpc) -> vehicle.ControllerState:
+    """The controller state a tick loop hands back: PID buffer and, under
+    MPC, the last tick's box-ADMM state (z, u_d)."""
+    return vehicle.ControllerState(pid.PIDState(buf, cnt, last),
+                                   None if mpc is None else (mpc.z, mpc.u_d))
 
 
 def _cycle_t0(cfg: EMConfig, cycle: int, batch: int, device) -> Tensor:
@@ -310,7 +382,6 @@ def simulate(global_path: Path, ego0: EgoState, obstacles0: Obstacles,
     ``lights``: optional ``traffic_light.TrafficLights`` of (B, L); a red
     light ahead caps the target speed to stop at the line. Returns the
     final LoopCarry and TickMetrics of (B, n_plans, plan_every)."""
-    check_supported(cfg)
     global_path = tree_to(global_path, device)
     ego0 = tree_to(ego0, device)
     obstacles0 = tree_to(obstacles0, device)
@@ -354,14 +425,14 @@ def plan_cycle(global_path: Path, carry: LoopCarry, cfg: EMConfig,
     plan_ok = _all_finite(res.target)
     target = _sanitize(res.target)
     cs = carry.ctrl.rebind()  # controller re-instantiation, test_9.py:415
-    ego, buf_n, cnt_n, last_n, obs, arrived, m = run_ticks(
+    ego, buf_n, cnt_n, last_n, obs, arrived, m, mpc = run_ticks(
         carry.ego, cs.pid.buffer, cs.pid.count, cs.pid.last_error,
         carry.obstacles, tspeed, ttime, target, carry.arrived, res.feasible,
         plan_ok, dest_x, dest_y, cfg, lights=lights, t0=t0,
     )
     dropped = res.obs_dropped[:, None].expand(-1, m[0].shape[1])
     metrics = TickMetrics(*m, dropped)
-    cs = vehicle.ControllerState(pid.PIDState(buf_n, cnt_n, last_n))
+    cs = _controller_after(buf_n, cnt_n, last_n, mpc)
     # sanitize the carried ADMM state: one NaN solve must not poison every
     # later cycle's warm start
     qp_state = tuple(torch.nan_to_num(a).contiguous() for a in res.qp_state)
@@ -383,7 +454,6 @@ def simulate_full(global_path: Path, ego0: EgoState, obstacles0: Obstacles,
     Returns (final LoopCarry, TickMetrics of (B, n_plans, plan_every)); with
     ``record_cycle_states`` also the ego state at the start of every plan
     cycle, an EgoState of (B, n_plans)."""
-    check_supported(cfg)
     global_path = tree_to(global_path, device)
     ego0 = tree_to(ego0, device)
     obstacles0 = tree_to(obstacles0, device)
@@ -430,14 +500,14 @@ def full_plan_cycle(global_path: Path, carry: LoopCarry, cfg: EMConfig,
     # once, (nd,)
     ttime = torch.nan_to_num(traj.time[0]).contiguous()
     cs = carry.ctrl.rebind()  # controller re-instantiation, test_9.py:415
-    ego, buf_n, cnt_n, last_n, obs, arrived, m = run_ticks(
+    ego, buf_n, cnt_n, last_n, obs, arrived, m, mpc = run_ticks(
         carry.ego, cs.pid.buffer, cs.pid.count, cs.pid.last_error,
         carry.obstacles, tspeed, ttime, target, carry.arrived,
         res.path.feasible, plan_ok, dest_x, dest_y, cfg, lights=lights, t0=t0,
     )
     dropped = res.segments_dropped[:, None].expand(-1, m[0].shape[1])
     metrics = TickMetrics(*m, dropped)
-    cs = vehicle.ControllerState(pid.PIDState(buf_n, cnt_n, last_n))
+    cs = _controller_after(buf_n, cnt_n, last_n, mpc)
     qp_warm = tuple(
         tuple(torch.nan_to_num(a).contiguous() for a in st)
         for st in (res.path.qp_state, res.speed_qp_state)

@@ -31,6 +31,19 @@ def hypot(a: Tensor, b: Tensor) -> Tensor:
                        torch.full_like(out, float("inf")), out)
 
 
+def tdiv(a: Tensor, b: float) -> Tensor:
+    """IEEE division by a constant. PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which rounds differently from the
+    quotient the CPU and the hand-written kernels compute."""
+    return a / torch.full_like(a, b)
+
+
+def sdiv(a: float, b: Tensor) -> Tensor:
+    """IEEE quotient of a constant by a tensor (``a / t`` in PyTorch is
+    ``t.reciprocal() * a``)."""
+    return torch.full_like(b, a) / b
+
+
 class Path(NamedTuple):
     """A discrete path (x, y, heading theta, curvature kappa), each (B, N)."""
 

@@ -1,9 +1,10 @@
 """Where the PyTorch port's full EM plan cycle spends its time on the GPU.
 
-Drives ``closed_loop.simulate_full`` (path + S-T speed planning, LQR +
-kinematic plant, config 5) at batch 4096 with 256-point paths on one NVIDIA
-card and prints JSON lines. It breaks a cycle down; the end-to-end rate
-(cycles/s) is ``chip_smoke.py``'s.
+Drives ``closed_loop.simulate_full`` (path + S-T speed planning) at batch
+4096 with 256-point paths on one NVIDIA card, at config 5 (LQR + kinematic
+plant) or, with ``--config 4``, at config 4 (MPC + dynamic bicycle), and
+prints JSON lines. It breaks a cycle down; the end-to-end rate (cycles/s)
+is ``chip_smoke.py``'s.
 
 1. ``device``: from a ``torch.profiler`` trace of an unsynchronised
    2-cycle run, the device events per cycle, the device busy time per
@@ -23,7 +24,7 @@ card and prints JSON lines. It breaks a cycle down; the end-to-end rate
 Run from the root of a checkout, on a machine with the card, after
 ``chip_smoke.py`` on the same machine:
 
-    python3 chip_smoke.py --summary e2e.json && python3 profile_port.py --e2e e2e.json
+    python3 chip_smoke.py --summary e2e.json && python3 profile_port.py --e2e e2e.json [--config 4]
 
 Imports no JAX. Fails when there is no card or the trace holds no device
 events.
@@ -46,8 +47,7 @@ N_PLANS = 2
 KERNELS = {"qp_admm (path + speed sites)": "qp_admm_warm_kernel",
            "path_obs_costs": "path_obs_kernel",
            "speed_dp": "speed_dp_kernel",
-           "tick_lqr": "tick_lqr_kernel"}
-E2E_PATH = "simulate_full config 5"    # chip_smoke.py's name of this path
+           "tick (K3; K5 + K6 at config 4)": "tick_kernel"}
 
 
 def _stage_targets():
@@ -86,7 +86,7 @@ def _stage_targets():
         (trajectory, "merge", "densify_merge"),
         (closed_loop, "_all_finite", "plan_guards"),
         (closed_loop, "_sanitize", "plan_guards"),
-        (closed_loop, "run_ticks", "ticks (K3)"),
+        (closed_loop, "run_ticks", "ticks (tick kernel)"),
     ]
 
 
@@ -173,6 +173,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--e2e", help="chip_smoke.py --summary output, run just before")
+    ap.add_argument("--config", type=int, choices=(4, 5), default=5,
+                    help="BASELINE config: 5 (LQR, kinematic) or 4 (MPC, dynamic)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device; this script runs only on the GPU",
@@ -195,6 +197,10 @@ def main() -> int:
     kbuild.build_all()
 
     full = EMConfig()
+    if opts.config == 4:
+        full = dataclasses.replace(
+            full, control=dataclasses.replace(full.control, kind="MPC"),
+            plant=dataclasses.replace(full.plant, kind="dynamic"))
     cfg = dataclasses.replace(full, loop=dataclasses.replace(full.loop, n_plans=N_PLANS))
     sc = scenario.batch_scenarios(SEED, BATCH, cfg, device="cuda")
     _run(sc, cfg)                                    # warm-up: allocator, caches
@@ -209,8 +215,10 @@ def main() -> int:
     e2e_ms = None
     if opts.e2e:
         with open(opts.e2e) as fh:
-            e2e_ms = json.load(fh)["paths"][E2E_PATH]["ms_per_cycle"]
-    print(json.dumps({"device": {
+            # chip_smoke.py's name of this path
+            path = f"simulate_full config {opts.config}"
+            e2e_ms = json.load(fh)["paths"][path]["ms_per_cycle"]
+    print(json.dumps({"config": opts.config, "device": {
         "profiled_ms_per_cycle": p_wall / N_PLANS * 1e3,
         "device_events_per_cycle": len(evs) / N_PLANS,
         "device_busy_ms_per_cycle": busy / 1e3,

@@ -1,5 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version, and ``simulate`` on the GPU against the CPU. Every test here needs
+version (the tick kernel in every controller / plant instantiation, the QP
+kernel warm and cold at both sites), and the loops on the GPU against the
+CPU. Every test here needs
 an NVIDIA GPU with nvcc and skips elsewhere. The file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -20,11 +22,30 @@ from emplanner_carla_tpu_torch.sim import closed_loop, scenario
 from emplanner_carla_tpu_torch.control import vehicle
 from emplanner_carla_tpu_torch.ops import frenet
 from emplanner_carla_tpu_torch.types import STSegments, tree_to
+from emplanner_carla_tpu_torch.config import mpc_feedforward_variant
 from torch_port_helpers import (  # noqa: F401
-    assert_metrics_match, assert_qp_close, cuda_device, np_of, t32,
+    assert_metrics_match, assert_qp_close, assert_tick_bar, cuda_device, np_of, t32,
 )
 
 CFG = EMConfig(loop=dataclasses.replace(EMConfig().loop, n_plans=2, plan_every=20))
+
+
+def _variant(control=None, **plant):
+    """CFG with the control fields replaced (``"ff"``: the feedforward MPC
+    variant) and the plant fields given."""
+    c = mpc_feedforward_variant(CFG.control) if control == "ff" else \
+        dataclasses.replace(CFG.control, **(control or {}))
+    return dataclasses.replace(CFG, control=c,
+                               plant=dataclasses.replace(CFG.plant, **plant))
+
+
+CONFIG4 = _variant(dict(kind="MPC"), kind="dynamic")
+TICK_VARIANTS = {
+    "mpc_dynamic": CONFIG4,
+    "mpc_kinematic": _variant(dict(kind="MPC")),
+    "lqr_dynamic": _variant(kind="dynamic"),
+    "mpc_feedforward_dynamic_substeps2": _variant("ff", kind="dynamic", substeps=2),
+}
 TICK_FIELDS = closed_loop.TickMetrics._fields[:8]
 
 
@@ -71,10 +92,11 @@ def test_k2_kernel_equals_plain_on_card(cuda_device):
     assert torch.equal(a, b)  # bit for bit
 
 
-def _tick_args(device):
+def _tick_args(device, cfg=CFG, B=64, displace=False):
     """One cycle's tick inputs from the port's own first plan cycle, with
-    a bad plan, an arrived lane and a destination within reach."""
-    B = 64
+    a bad plan, an arrived lane and a destination within reach; with
+    ``displace`` the egos start up to 2.5 m and 0.4 rad off the target, so
+    that the MPC saturates in the first ticks."""
     sc = scenario.batch_scenarios(2, B, CFG, device=device, n_path=96)
     gp = sc.global_path
     carry = closed_loop.LoopCarry(
@@ -95,10 +117,16 @@ def _tick_args(device):
     dest_x[3] = sc.ego0.x[3] + 2.5
     dest_y[3] = sc.ego0.y[3]
     cs = carry.ctrl.rebind()
-    return (sc.ego0, cs.pid.buffer, cs.pid.count, cs.pid.last_error, sc.obstacles,
+    ego = sc.ego0
+    if displace:
+        off = torch.linspace(-2.5, 2.5, B, device=device)
+        ego = ego._replace(x=ego.x - off * torch.sin(ego.phi),
+                           y=ego.y + off * torch.cos(ego.phi),
+                           phi=ego.phi + 0.4 * torch.sin(7.0 * off))
+    return (ego, cs.pid.buffer, cs.pid.count, cs.pid.last_error, sc.obstacles,
             torch.full((B, tq.shape[0]), float(v), device=device),
             torch.as_tensor(tq, device=device), closed_loop._sanitize(res.target),
-            arrived, res.feasible, plan_ok, dest_x, dest_y, CFG)
+            arrived, res.feasible, plan_ok, dest_x, dest_y, cfg)
 
 
 @pytest.mark.cuda
@@ -238,3 +266,80 @@ def test_simulate_full_on_card_matches_cpu(cuda_device):
         m_cpu_np = closed_loop.TickMetrics(*[np_of(a) for a in m_cpu])
         assert_metrics_match(tree_to(m_gpu, "cpu"), m_cpu_np,
                              closed_loop.TickMetrics._fields, "simulate_full.")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TICK_VARIANTS))
+def test_k5_k6_kernel_matches_plain_on_card(cuda_device, name):
+    """The tick kernel's other instantiations (K5: MPC, K6: dynamic plant,
+    with sub-steps and the raw heading error) at 128 lanes against the plain
+    loop, at the JAX package's kernel-vs-scan bar."""
+    cfg = TICK_VARIANTS[name]
+    args = _tick_args(cuda_device, cfg, B=128, displace=True)
+    key = closed_loop.tick_kernel_name(cfg)
+    assert key != "tick_lqr"
+    before = closed_loop.launches[key]
+    out_k = closed_loop.run_ticks_kernel(*args)
+    assert closed_loop.launches[key] == before + 1
+    out_p = closed_loop._full_ticks_base(*args)
+    torch.cuda.synchronize()
+    assert_tick_bar(out_k, out_p)
+    if cfg.control.kind == "MPC":
+        mk, mp = out_k[7], out_p[7]
+        assert int(mk.admm_ticks.sum()) > 0
+        assert abs(int(mk.admm_ticks.sum()) - int(mp.admm_ticks.sum())) <= 2
+        np.testing.assert_allclose(np_of(mk.z), np_of(mp.z), rtol=1e-3, atol=1e-3)
+    else:
+        assert out_k[7] is None and out_p[7] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["path", "speed"])
+def test_k1c_kernel_matches_plain_on_card(cuda_device, site):
+    """The cold QP (K1c): the QP kernel from the zero state with the cold
+    count against the plain ladder from zeros, at the K1 bar of the site."""
+    B = 100
+    rng = np.random.default_rng(11)
+    if site == "path":
+        n = 25
+        solver = path_qp._solver_for(n, 4.0, CFG.path, False)[0]
+        q = np.zeros((B, solver.n), np.float32)
+        q[:, 0:3 * n:3] = -500.0 * rng.normal(size=(B, n))
+        start = rng.normal(size=(B, 3)) * 0.5
+        u = np.concatenate([np.zeros((B, 2 * (n - 1))), rng.uniform(0, 8, (B, 4 * n)),
+                            start, np.zeros((B, 3)), np.full((B, n), 1e8)], 1)
+        l = np.concatenate([np.zeros((B, 2 * (n - 1))), np.full((B, 4 * n), -1e8),
+                            start, np.zeros((B, 3)), np.zeros((B, n))], 1)
+        q, l, u = (t32(a, cuda_device) for a in (q, l, u))
+        atol = 1e-4
+    else:
+        sp = CFG.speed
+        solver = speed_planner._speed_solver(sp, warm=False)
+        seg, v0 = _random_segments(B, 2, cuda_device, seed=6)
+        dp = speed_planner._speed_dp_torch(seg, v0, sp)
+        path_s = torch.arange(96, device=cuda_device, dtype=torch.float32)[None].expand(B, 96) * 2.0
+        bounds = speed_planner.convex_space(dp, seg, path_s,
+                                            torch.full((B, 96), 0.01, device=cuda_device), sp)
+        q, l, u = speed_planner.speed_qp_problem(v0, torch.zeros(B, device=cuda_device),
+                                                 *bounds, sp)
+        atol = 1e-3
+    assert solver.iters == 80 and not solver.warm
+    before = t_qp.launches[solver.name]
+    x_k = solver(q, l, u)
+    assert t_qp.launches[solver.name] == before + 1
+    zero = t_qp.warm_zero_state(solver.n, solver.m, B, cuda_device)
+    x_p = t_qp.warm_ladder_torch(solver, q, l, u, zero)[0]
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(np_of(x_k), np_of(x_p), rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+def test_simulate_full_config4_on_card_matches_cpu(cuda_device):
+    sc = scenario.batch_scenarios(5, 16, CONFIG4, device="cpu", n_path=96)
+    before = closed_loop.launches["tick_mpc_dynamic"]
+    _, m_gpu = closed_loop.simulate_full(*sc, CONFIG4, device=cuda_device)
+    assert closed_loop.launches["tick_mpc_dynamic"] - before == CONFIG4.loop.n_plans
+    _, m_cpu = closed_loop.simulate_full(*sc, CONFIG4, device="cpu")
+    m_cpu_np = closed_loop.TickMetrics(*[np_of(a) for a in m_cpu])
+    assert_metrics_match(tree_to(m_gpu, "cpu"), m_cpu_np,
+                         closed_loop.TickMetrics._fields, "config4.")

@@ -17,8 +17,6 @@ from emplanner_carla_tpu.sim import closed_loop as j_cl
 from emplanner_carla_tpu.sim import scenario as j_sc
 from emplanner_carla_tpu.sim.traffic_light import TrafficLights
 from emplanner_carla_tpu_torch import convert
-from emplanner_carla_tpu_torch.ops import frenet
-from emplanner_carla_tpu_torch.planner import em_planner
 from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
 from emplanner_carla_tpu_torch.sim import scenario as t_sc
 from torch_port_helpers import assert_metrics_match, np_of
@@ -144,31 +142,6 @@ def test_one_more_cycle_from_jax_carry(jax_run):
         gp, tcarry, TC, torch.full((B, tq.shape[0]), float(v)), torch.as_tensor(tq),
         gp.x[:, -1].contiguous(), gp.y[:, -1].contiguous())
     assert_metrics_match(mt, mj, j_cl.TickMetrics._fields, "cycle3.")
-
-
-@pytest.mark.parametrize("change", [
-    dict(control=dict(kind="MPC")),
-    dict(control=dict(raw_heading_error=True)),
-    dict(plant=dict(kind="dynamic")),
-    dict(plant=dict(substeps=2)),
-    dict(cold_speed_qp=True),
-])
-def test_outside_the_slice_raises(change):
-    cfg = TC
-    for part, kw in change.items():
-        if part != "cold_speed_qp":
-            cfg = dataclasses.replace(cfg, **{part: dataclasses.replace(getattr(cfg, part), **kw)})
-    sc = t_sc.batch_scenarios(0, 2, cfg, device="cpu", n_path=96)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if "cold_speed_qp" in change:
-            # a full cycle without a speed-QP warm state reaches the cold
-            # ladder (K1c)
-            mi = frenet.nearest_index(sc.ego0.x, sc.ego0.y, sc.global_path)
-            path_warm, _ = em_planner.warm_init(cfg, 2, "cpu", full=True)
-            em_planner.plan_full_cycle(sc.global_path, sc.ego0, sc.obstacles,
-                                       mi, cfg, qp_warm=(path_warm, None))
-        else:
-            t_cl.simulate(*sc, cfg, device="cpu")
 
 
 def test_lights_now_run():

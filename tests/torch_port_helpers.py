@@ -58,6 +58,35 @@ def assert_metrics_match(m_port, m_jax, fields, label=""):
                                        err_msg=f"{label}{name}")
 
 
+def assert_tick_bar(out_port, out_ref):
+    """One cycle's tick loop at the JAX package's own kernel-vs-scan bar
+    (``tests/test_tick_pallas.py``): ego x, y, vx and the PID buffer within
+    1e-3, heading within 5e-4 (lanes near the MPC's box boundary compound
+    operation-order differences), obstacle x within 1e-4, the x metric
+    within 1e-3 and the lateral error within 2e-3; the PID count, arrival
+    and the collided / arrived / feasible channels identical. Both outputs
+    are (ego, buffer, count, last error, obstacles, arrived, metrics, ...)
+    with the metrics indexable as TickMetrics' first eight channels, as
+    tensors on any device or as arrays."""
+
+    def arr(t):
+        return np_of(t) if isinstance(t, torch.Tensor) else np.asarray(t)
+
+    ego_a, buf_a, cnt_a, _, obs_a, arr_a, m_a = out_port[:7]
+    ego_b, buf_b, cnt_b, _, obs_b, arr_b, m_b = out_ref[:7]
+    for name, a, b, atol in (
+        ("x", ego_a.x, ego_b.x, 1e-3), ("y", ego_a.y, ego_b.y, 1e-3),
+        ("phi", ego_a.phi, ego_b.phi, 5e-4), ("vx", ego_a.vx, ego_b.vx, 1e-3),
+        ("pid_buffer", buf_a, buf_b, 1e-3), ("obs.x", obs_a.x, obs_b.x, 1e-4),
+        ("metric x", m_a[0], m_b[0], 1e-3), ("lateral_err", m_a[3], m_b[3], 2e-3),
+    ):
+        np.testing.assert_allclose(arr(a), arr(b), atol=atol, err_msg=name)
+    for name, a, b in (("pid_count", cnt_a, cnt_b), ("arrived", arr_a, arr_b),
+                       ("collided", m_a[5], m_b[5]), ("arrived metric", m_a[6], m_b[6]),
+                       ("feasible", m_a[7], m_b[7])):
+        np.testing.assert_array_equal(arr(a), arr(b), err_msg=name)
+
+
 def assert_qp_close(x_a, st_a, x_b, st_b, atol=1e-4, y_rows=None):
     """K1 bar: x, x_s and z at rtol 1e-4 / atol 1e-4 (float32 dot order
     differs between the implementations). The dual y is held to 1% of its
