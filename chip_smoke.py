@@ -37,20 +37,30 @@ Phases (any failure exits non-zero and prints no result line):
    - the cold QP (K1c) at the speed site, on bench config 1's two-segment
      set tiled to the batch, and at the path site, on bench config 2's
      open-loop plan: x within the site's K1 bar;
+   - from ``simulate_traffic`` at config 7 (full EM, NPC agents, normal
+     preset), the tick kernel's agent-traffic branch (K7): LQR + kinematic,
+     with the traffic lights, and MPC + dynamic (config 4's controller and
+     plant), each held bit for bit or, failing that, at the JAX package's
+     kernel-vs-scan traffic bar (the tick bar; NPC indices, lane targets and
+     decisions identical, lane offsets within 1e-5, NPC positions and
+     velocities within 1e-3), with the live agent (lane, tick) pairs;
 3. end to end, each main path with every launch counter taken from zero
-   just before it and read just after: ``simulate`` at config 3 and
-   ``simulate_full`` at configs 5 and 4 (batch 4096, 20 plans x 100 ticks,
+   just before it and read just after, and with the plain tick loops made
+   to raise: ``simulate`` at config 3, ``simulate_full`` at configs 5 and 4
+   and ``simulate_traffic`` at config 7 (batch 4096, 20 plans x 100 ticks,
    256-point paths), five timed runs each, finite metrics, collisions,
    lateral RMSE and the median cycles/s; then once each ``simulate_full``
    with the traffic lights, config 4 on the kinematic plant, config 5 on the
    dynamic plant and config 4 with the feedforward MPC and two plant steps a
-   tick; then bench config 1 (standalone S-T DP + cold speed QP, solves/s)
-   and config 2 (open-loop path plan, plans/s), five timed runs each;
+   tick, and ``simulate_traffic`` with the traffic lights, with walkers and
+   under MPC + the dynamic bicycle; then bench config 1 (standalone S-T DP +
+   cold speed QP, solves/s) and config 2 (open-loop path plan, plans/s),
+   five timed runs each;
 4. device equivalence: ``simulate``, ``simulate_full`` (with and without
-   lights) and ``simulate_full`` at config 4 on 128 scenarios x 2 plans
-   with ``device="cuda"`` and ``device="cpu"``;
-5. a ``{"kernels": [...]}`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   lights), ``simulate_full`` at config 4 and ``simulate_traffic`` at config
+   7 on 128 scenarios x 2 plans with ``device="cuda"`` and ``device="cpu"``;
+5. the script's wall time, a ``{"kernels": [...]}`` JSON line, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 ``--summary PATH`` also writes the end-to-end medians there as JSON
 (``profile_port.py --e2e PATH`` reads them). Needs no network and imports
@@ -77,7 +87,8 @@ LIGHT_S = (30.0, 60.0)
 # per-kernel checks printed beside the times, not part of the JSON line
 _EXTRA = ("y_max_abs_err", "candidates_in_window", "speed_columns_read",
           "live_triples", "lanes_capped", "input", "admm_lane_ticks",
-          "admm_lane_ticks_plain")
+          "admm_lane_ticks_plain", "live_agent_lane_ticks",
+          "scanned_actor_lane_ticks", "bit_exact")
 
 
 def _card_line() -> str:
@@ -185,6 +196,7 @@ def _capture(fn):
         (t_qp, "warm_admm_kernel"): t_qp.warm_admm_kernel,
         (t_dp, "transition_obstacle_costs_kernel"): t_dp.transition_obstacle_costs_kernel,
         (t_cl, "run_ticks_kernel"): t_cl.run_ticks_kernel,
+        (t_cl, "run_traffic_ticks_kernel"): t_cl.run_traffic_ticks_kernel,
         (t_sp, "speed_dp_kernel"): t_sp.speed_dp_kernel,
     }
 
@@ -336,38 +348,11 @@ def _tick_bar(name, out_k, out_p):
             raise AssertionError(f"{name} {ch}: {int((a != b).sum())} of {a.numel()} differ")
 
 
-def _check_ticks(cfg, captured, name, replaces, tick_bar=False):
-    """The tick kernel against its plain loop on captured arguments (with
-    the captured lights, if any), run under ``cfg``: bool channels
-    identical, floats within rtol 1e-5 / atol 5 mm; with ``tick_bar`` the
-    JAX package's kernel-vs-scan bar (:func:`_tick_bar`) instead."""
+def _tick_work(cfg, args, kw, out_k, out_p):
+    """(bytes, float operations, extra checks) of one tick-loop call on
+    these inputs, counted from this run's data."""
     import torch
 
-    from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
-
-    args, kw = captured["run_ticks_kernel"]
-    args = args[:-1] + (cfg,)
-    out_k = t_cl.run_ticks_kernel(*args, **kw)
-    out_p = t_cl._full_ticks_base(*args, **kw)
-    torch.cuda.synchronize()
-    err = 0.0
-    names = t_cl.TickMetrics._fields[:8]
-    for ch, a, b in zip(names, out_k[6], out_p[6]):
-        if a.dtype == torch.bool:
-            if not tick_bar and not torch.equal(a, b):
-                raise AssertionError(f"{name} {ch}: {int((a != b).sum())} "
-                                     f"of {a.numel()} differ")
-        else:
-            if not tick_bar and not torch.allclose(a, b, rtol=1e-5, atol=5e-3):
-                raise AssertionError(f"{name} {ch}: max |diff| "
-                                     f"{float((a - b).abs().max())}")
-            err = max(err, float((a - b).abs().max()))
-    if tick_bar:
-        _tick_bar(name, out_k, out_p)
-    k3 = lambda: t_cl.run_ticks_kernel(*args, **kw)  # noqa: E731
-    call_ms = _time_ms(k3, 20)
-    ms = _device_ms(k3, 20, call_ms)
-    plain_ms = _time_ms(lambda: t_cl._full_ticks_base(*args, **kw), 2)
     ego, pbuf, pcnt, plast, obs, tspeed, ttime, target = args[:8]
     B, K, NP, NB = ego.x.shape[0], obs.x.shape[1], target.x.shape[1], pbuf.shape[1]
     T = cfg.loop.plan_every
@@ -417,6 +402,44 @@ def _check_ticks(cfg, captured, name, replaces, tick_bar=False):
             cfg.vehicle, cc, str(ego.x.device))[2]["packed"])
     if lights is not None:
         nbytes += _nbytes(*list(lights), kw["t0"])
+    extra["speed_columns_read"] = cols_read
+    return nbytes, flops, extra
+
+
+def _check_ticks(cfg, captured, name, replaces, tick_bar=False):
+    """The tick kernel against its plain loop on captured arguments (with
+    the captured lights, if any), run under ``cfg``: bool channels
+    identical, floats within rtol 1e-5 / atol 5 mm; with ``tick_bar`` the
+    JAX package's kernel-vs-scan bar (:func:`_tick_bar`) instead."""
+    import torch
+
+    from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
+
+    args, kw = captured["run_ticks_kernel"]
+    args = args[:-1] + (cfg,)
+    out_k = t_cl.run_ticks_kernel(*args, **kw)
+    out_p = t_cl._full_ticks_base(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    names = t_cl.TickMetrics._fields[:8]
+    for ch, a, b in zip(names, out_k[6], out_p[6]):
+        if a.dtype == torch.bool:
+            if not tick_bar and not torch.equal(a, b):
+                raise AssertionError(f"{name} {ch}: {int((a != b).sum())} "
+                                     f"of {a.numel()} differ")
+        else:
+            if not tick_bar and not torch.allclose(a, b, rtol=1e-5, atol=5e-3):
+                raise AssertionError(f"{name} {ch}: max |diff| "
+                                     f"{float((a - b).abs().max())}")
+            err = max(err, float((a - b).abs().max()))
+    if tick_bar:
+        _tick_bar(name, out_k, out_p)
+    k3 = lambda: t_cl.run_ticks_kernel(*args, **kw)  # noqa: E731
+    call_ms = _time_ms(k3, 20)
+    ms = _device_ms(k3, 20, call_ms)
+    plain_ms = _time_ms(lambda: t_cl._full_ticks_base(*args, **kw), 2)
+    nbytes, flops, extra = _tick_work(cfg, args, kw, out_k, out_p)
+    if kw.get("lights") is not None:
         # lanes whose cycle the red-light cap changed: the lights-free run
         # of the same arguments ends at another speed
         free = t_cl.run_ticks_kernel(*args)
@@ -425,8 +448,74 @@ def _check_ticks(cfg, captured, name, replaces, tick_bar=False):
     return dict(
         name=name, route="cuda", source="emplanner_carla_tpu_torch/csrc/tick_lqr.cu",
         replaces=replaces, max_abs_err=err, ms=ms, call_ms=call_ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None, **extra)
+
+
+def _check_traffic(cfg, captured, name, replaces):
+    """The tick kernel's agent-traffic branch (K7) against its plain loop on
+    captured arguments, run under ``cfg``: bit for bit on every float and
+    decision channel, or else within the JAX package's kernel-vs-scan
+    traffic bar (:func:`_tick_bar`; NPC indices, lane targets identical,
+    lane offsets within 1e-5, NPC positions and velocities within 1e-3),
+    which raises when broken."""
+    import torch
+
+    from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
+
+    args, kw = captured["run_traffic_ticks_kernel"]
+    args = args[:-1] + (cfg,)
+    out_k = t_cl.run_traffic_ticks_kernel(*args, **kw)
+    out_p = t_cl._traffic_ticks_base(*args, **kw)
+    torch.cuda.synchronize()
+    floats = [*zip(out_k[0], out_p[0]), (out_k[1], out_p[1]), (out_k[3], out_p[3]),
+              *[(getattr(out_k[4], f), getattr(out_p[4], f)) for f in ("x", "y", "vx", "vy")],
+              *[(a, b) for a, b in zip(out_k[6], out_p[6]) if a.dtype != torch.bool],
+              (out_k[9], out_p[9])]
+    err = max(float((a - b).abs().max()) for a, b in floats)
+    _tick_bar(name, out_k, out_p)
+    for ch, a, b in (("npc index", out_k[8], out_p[8].to(torch.int32)),
+                     ("lane target", out_k[10], out_p[10])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} {ch}: {int((a != b).sum())} of {a.numel()} differ")
+    for ch, atol, a, b in (("lane offset", 1e-5, out_k[9], out_p[9]),
+                           *[(f"obs.{f}", 1e-3, getattr(out_k[4], f), getattr(out_p[4], f))
+                             for f in ("x", "y", "vx", "vy")]):
+        e = float((a - b).abs().max())
+        if not e <= atol:
+            raise AssertionError(f"{name} {ch}: max |diff| {e} > {atol}")
+    k7 = lambda: t_cl.run_traffic_ticks_kernel(*args, **kw)  # noqa: E731
+    call_ms = _time_ms(k7, 20)
+    ms = _device_ms(k7, 20, call_ms)
+    plain_ms = _time_ms(lambda: t_cl._traffic_ticks_base(*args, **kw), 2)
+    nbytes, flops, extra = _tick_work(cfg, args, kw, out_k, out_p)
+    tr, obs = kw["traffic"], args[4]
+    B, K = obs.x.shape
+    T = cfg.loop.plan_every
+    L = 0 if kw.get("lights") is None else kw["lights"].x.shape[1]
+    agents = tr.agent_slot & obs.valid
+    live = int(agents.sum()) * T
+    # the actors each live agent's scans visit: the lane's valid slots but
+    # itself, and the ego
+    scanned = int((agents.sum(1) * obs.valid.sum(1)).sum()) * T
+    # per live agent (lane, tick): five corridor scans (~12 operations per
+    # actor visited), the 32-row match (6 a row), ~18 transcendentals (atan2,
+    # sin, cos, tan, sqrt; ~20 operations each) and ~60 scalar operations of
+    # lane decision, IDM and bicycle, plus ~20 a traffic light; every other
+    # slot ~4 a tick of constant-velocity motion and each slot 3 for its
+    # lane slew
+    flops += 5 * 12.0 * scanned + live * (32 * 6 + 18 * 20 + 60 + 20 * L) \
+        + (B * K * T - live) * 4.0 + B * K * T * 3.0
+    # the global path, the NPC state and the outputs the traffic adds
+    nbytes += _nbytes(*list(tr.global_path)[:3], tr.npc_idx, tr.lane_off, tr.lane_tgt,
+                      tr.agent_slot, out_k[4].vx, out_k[4].vy, out_k[8], out_k[9], out_k[10])
+    bound, by = _bound_ms(nbytes, flops)
+    bit_exact = err == 0.0
+    return dict(
+        name=name, route="cuda", source="emplanner_carla_tpu_torch/csrc/tick_lqr.cu",
+        replaces=replaces, max_abs_err=err, ms=ms, call_ms=call_ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-        speed_columns_read=cols_read, **extra)
+        live_agent_lane_ticks=live, scanned_actor_lane_ticks=scanned, bit_exact=bit_exact,
+        **extra)
 
 
 def _displaced(captured):
@@ -577,19 +666,32 @@ def _read_counts():
 def _drive(label, run, expected: dict, reps: int):
     """Run a main path ``reps`` times, each with the launch counters taken
     from zero just before it and read just after; every count must be the
-    expected one. Returns (last output, walls, counts)."""
+    expected one, and a call of a plain tick loop raises. Returns (last
+    output, walls, counts)."""
     import torch
 
+    from emplanner_carla_tpu_torch.sim import closed_loop as t_cl
+
+    def refuse(*_a, **_k):
+        raise AssertionError(f"{label}: the plain tick loop ran on the card's path")
+
+    plain = {n: getattr(t_cl, n) for n in ("_full_ticks_base", "_traffic_ticks_base")}
     walls = []
-    for _ in range(reps):
-        _reset_counts()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        counts = _read_counts()
-        if counts != expected:
-            raise AssertionError(f"{label}: launches {counts}, expected {expected}")
+    try:
+        for n in plain:
+            setattr(t_cl, n, refuse)
+        for _ in range(reps):
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = _read_counts()
+            if counts != expected:
+                raise AssertionError(f"{label}: launches {counts}, expected {expected}")
+    finally:
+        for n, fn in plain.items():
+            setattr(t_cl, n, fn)
     return out, walls, counts
 
 
@@ -664,6 +766,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = _card_line()
     t0 = time.perf_counter()
     kbuild.build_all()
@@ -694,6 +797,15 @@ def main() -> int:
     sim5l = lambda c: closed_loop.simulate_full(  # noqa: E731
         *sc, c, lights=lights, device="cuda")
     seg1, v01 = _bench_config1_segments(BATCH, "cuda")
+    # bench config 7 (bench_all.py:157-170): simulate_traffic, normal preset,
+    # full EM; also with the traffic lights and on the mix with its walker
+    sc_w = scenario.batch_scenarios(SEED, BATCH, cfg, device="cuda", with_walker=True)
+    sim7 = lambda c: closed_loop.simulate_traffic(  # noqa: E731
+        *sc, c, behavior="normal", full=True, device="cuda")
+    sim7l = lambda c: closed_loop.simulate_traffic(  # noqa: E731
+        *sc, c, behavior="normal", full=True, lights=lights, device="cuda")
+    sim7w = lambda c: closed_loop.simulate_traffic(  # noqa: E731
+        *sc_w, c, behavior="normal", full=True, device="cuda")
 
     # ---- per-kernel phase, on the third plan cycle of each path: in the
     # first, no obstacle reaches the path DP (the parked cars lie beyond the
@@ -736,6 +848,13 @@ def main() -> int:
     entries["qp_admm_cold_speed"] = _check_cold_qp(cap1, "qp_admm_cold_speed", 1e-3)
     cap2 = _capture(lambda: _config2_run(sc, cfg))
     entries["qp_admm_cold_path"] = _check_cold_qp(cap2, "qp_admm_cold_path", 1e-4)
+    # the agent-traffic branch (K7) on config 7's third cycle: LQR +
+    # kinematic, with the lights, and MPC + the dynamic bicycle
+    for name, run, c, line in (("tick_traffic", sim7, cfg, 555),
+                               ("tick_traffic_lights", sim7l, cfg, 685),
+                               ("tick_traffic_mpc_dynamic", sim7, cfg4, 555)):
+        entries[name] = _check_traffic(c, _capture_cycle(run, c, n_plans=3), name,
+                                       f"emplanner_carla_tpu/ops/tick_pallas.py:{line}")
     for e in (*entries.values(), fixed, saturated):
         _print_entry(e)
 
@@ -750,6 +869,7 @@ def main() -> int:
          ("qp_admm_warm", "path_obs_costs", "tick_lqr"), 5),
         ("simulate_full config 5", sim5, cfg, full + ("tick_lqr",), 5),
         ("simulate_full config 4", sim5, cfg4, full + ("tick_mpc_dynamic",), 5),
+        ("simulate_traffic config 7", sim7, cfg, full + ("tick_traffic",), 5),
         ("simulate_full config 5 + lights", sim5l, cfg, full + ("tick_lqr_lights",), 1),
         ("simulate_full config 4, kinematic plant", sim5, cfg4_kin,
          full + ("tick_mpc_kinematic",), 1),
@@ -757,6 +877,10 @@ def main() -> int:
          full + ("tick_lqr_dynamic",), 1),
         ("simulate_full config 4, feedforward MPC, 2 substeps", sim5, cfg4_ff,
          full + ("tick_mpc_dynamic",), 1),
+        ("simulate_traffic config 7 + lights", sim7l, cfg, full + ("tick_traffic_lights",), 1),
+        ("simulate_traffic config 7, walkers", sim7w, cfg, full + ("tick_traffic",), 1),
+        ("simulate_traffic config 7, MPC + dynamic bicycle", sim7, cfg4,
+         full + ("tick_traffic_mpc_dynamic",), 1),
     ):
         run(_with_plans(path_cfg, 2))                    # warm-up
         torch.cuda.synchronize()
@@ -803,6 +927,10 @@ def main() -> int:
                                   "tick_mpc_dynamic"),
         "qp_admm_cold_speed": ("config 1 standalone S-T solve", "qp_admm_cold_speed"),
         "qp_admm_cold_path": ("config 2 open-loop path plan", "qp_admm_cold_path"),
+        "tick_traffic": ("simulate_traffic config 7", "tick_traffic"),
+        "tick_traffic_lights": ("simulate_traffic config 7 + lights", "tick_traffic_lights"),
+        "tick_traffic_mpc_dynamic": ("simulate_traffic config 7, MPC + dynamic bicycle",
+                                     "tick_traffic_mpc_dynamic"),
     }
     for name, e in entries.items():
         path, key = launch_src.get(name, ("simulate_full config 5", name))
@@ -817,6 +945,8 @@ def main() -> int:
         ("simulate_full", closed_loop.simulate_full, cfg, {}),
         ("simulate_full + lights", closed_loop.simulate_full, cfg, {"lights": small_lights}),
         ("simulate_full config 4", closed_loop.simulate_full, cfg4, {}),
+        ("simulate_traffic config 7", closed_loop.simulate_traffic, cfg,
+         {"behavior": "normal", "full": True}),
     ):
         eq_cfg = _with_plans(c, 2)
         _, m_gpu = fn(*small, eq_cfg, device="cuda", **kw)
@@ -844,6 +974,8 @@ def main() -> int:
     if opts.summary:
         with open(opts.summary, "w") as fh:
             json.dump({"card": card, "paths": per_path}, fh, indent=1)
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s, the kernel build "
+          f"included, on [{card}]", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries.values()]}),

@@ -1,14 +1,15 @@
 """PyTorch/CUDA port of emplanner_carla_tpu: the path-planning closed loop
 (``sim.closed_loop.simulate``), the full EM loop (``simulate_full``) with
-every control and plant variant and traffic lights, and the open-loop
+every control and plant variant and traffic lights, the agent-traffic loop
+(``simulate_traffic``, NPC agents from ``sim.npc``), and the open-loop
 planning entries with their cold QPs.
 
 The package mirrors the JAX package's module paths and function names
 (``ops/``, ``planner/``, ``control/``, ``sim/``) on batch-first tensors. It
 imports ``torch`` and NumPy, never JAX and nothing of the JAX package. Its
-entry points (``sim.closed_loop.simulate`` / ``simulate_full``,
-``sim.scenario.batch_scenarios``) run on the card unless the caller passes
-``device="cpu"``.
+entry points (``sim.closed_loop.simulate`` / ``simulate_full`` /
+``simulate_traffic``, ``sim.scenario.batch_scenarios``) run on the card
+unless the caller passes ``device="cpu"``.
 
 Precision: float32 throughout, TF32 off; the solver sites check it
 (``precision.require_fp32_matmul``). The hand-written CUDA kernels under

@@ -16,7 +16,8 @@ import torch
 
 from emplanner_carla_tpu_torch import config as cfg_mod
 from emplanner_carla_tpu_torch.control import pid, vehicle
-from emplanner_carla_tpu_torch.sim.closed_loop import LoopCarry
+from emplanner_carla_tpu_torch.sim import npc
+from emplanner_carla_tpu_torch.sim.closed_loop import LoopCarry, TrafficCarry
 from emplanner_carla_tpu_torch.sim.traffic_light import TrafficLights
 from emplanner_carla_tpu_torch.types import EgoState, Obstacles, Path
 
@@ -99,3 +100,19 @@ def lights_from_numpy(tl, device="cpu") -> TrafficLights:
           for f in TrafficLights._fields[:-1]),
         _t(tl.valid, device, torch.bool),
     )
+
+
+def lane_state_from_numpy(lane, device="cpu") -> npc.LaneState:
+    """npc.LaneState from anything with offset and target arrays, (B, K)."""
+    return npc.LaneState(_t(lane.offset, device, torch.float32),
+                         _t(lane.target, device, torch.float32))
+
+
+def traffic_carry_from_numpy(c, device="cpu") -> TrafficCarry:
+    """TrafficCarry from a batched JAX ``closed_loop.TrafficCarry``: its
+    LoopCarry, the NPCs' match indices (int32) and their lane state, e.g.
+    taken mid lane change, for ``simulate_traffic``'s ``npc_init`` and
+    starting state."""
+    return TrafficCarry(carry_from_numpy(c.loop, device),
+                        _t(c.npc_path_index, device, torch.int32),
+                        lane_state_from_numpy(c.npc_lane, device))

@@ -1,13 +1,16 @@
 // One plan cycle's control/plant tick loop, all ticks in one kernel: LQR or
 // the condensed MPC lateral controller, the kinematic or the dynamic bicycle,
-// with or without traffic lights.
+// with or without traffic lights, with constant-velocity obstacles or with
+// NPC agents.
 //
 // Replaces: emplanner_carla_tpu/ops/tick_pallas.py run_ticks_batched: its LQR /
 // kinematic branch (K3) with its red-light branch (lights=, :211-217,
 // :286-308, :393-401), its MPC branch (K5, tables :142-173, in-kernel
-// :436-503) and its dynamic-plant branch (K6, plant_mod.step at :543-548,
-// i.e. sim/plant.py:77-111) (dispatched at sim/closed_loop.py:706-746).
-// Semantics: sim/closed_loop._full_ticks_base.
+// :436-503), its dynamic-plant branch (K6, plant_mod.step at :543-548,
+// i.e. sim/plant.py:77-111) (dispatched at sim/closed_loop.py:706-746) and
+// its agent-traffic branch (K7, traffic=, :191-210, :555-799, :920-930,
+// dispatched at sim/closed_loop.py:875-931).
+// Semantics: sim/closed_loop._full_ticks_base and _traffic_ticks_base.
 // Per tick and lane: hat lookup of the planned speed; time-headway ACC cap on
 // the nearest lead in the ego's corridor (heading fallback below 0.5 m/s);
 // with lights, the red stop line's time-headway cap in the same corridor
@@ -18,6 +21,17 @@
 // substeps with the lagged, rate-limited steering actuator; constant-velocity
 // obstacle advance; collision check; lateral error at the new pose; 8 metric
 // channels written as (channel, B, ticks).
+//
+// NPC agents (traffic branch, sim/npc.py, see npc_advance): after the ego's
+// plant step every slot's lane offset slews toward its target; each live
+// agent slot then finds its own-lane and target-lane leads among the other
+// slots and the ego at its new pose, the red stop line (with lights), three
+// corridor checks and the lane decision, the 32-row forward first-minimum
+// match and the look-ahead row, pure pursuit (atan2f, as the plain version's
+// torch.atan2, not the TPU kernel's polynomial), IDM and the kinematic
+// bicycle; the other slots move at constant velocity. Every slot reads the
+// others as they stood at the start of the tick: the new states go to
+// temporaries and are written back after the last slot.
 //
 // Lateral controllers. LQR: gain-table lerp + curvature feedforward. MPC
 // (control/lateral.mpc_steer_table): one lerp of the Vx-grid tables, the
@@ -34,7 +48,10 @@
 // ~3.8e3 per MPC tick that runs the ADMM), but the ticks of a lane are
 // strictly sequential and there is one lane per scenario: 4096 lanes are 128
 // warps for 132 SMs, so each SM runs about one warp and cannot hide the
-// latency of its dependent arithmetic and loads.
+// latency of its dependent arithmetic and loads. With agents, each live
+// agent adds ~6e2 operations a tick (the 32-row match, ~18 transcendentals,
+// IDM and the bicycle) and ~60 for each actor its five corridor scans visit
+// (the valid other slots and the ego) to the same serial chain.
 //
 // What the design does about it: one thread per lane keeps the whole ego,
 // PID and obstacle state in registers (the PID buffer in a per-thread ring
@@ -46,7 +63,16 @@
 // path and speed profile are re-read from the L1-resident rows. The LQR +
 // kinematic entry point `tick_lqr` keeps one plant step and the sin heading
 // error as compile-time constants, the code of K3; `tick_variant` takes
-// substeps and the raw heading error as runtime parameters.
+// substeps and the raw heading error as runtime parameters; `tick_traffic`
+// runs every controller and plant with the agents (K7), whose per-slot state
+// (the tick-start copy, the new states, lane offsets and targets, match
+// indices: 24.6 KB a block) sits lane-minor in static shared memory, since a
+// slot's loop reads the other slots by a run-time index; the lane's global
+// path is read in place (32 match rows and two look-up rows a live agent and
+// tick, L1/L2-resident). The TPU kernel's 96-row block-shared path window,
+// its containment gate, its skip of blocks without a live agent and its
+// one-hot row selection are Mosaic scheduling choices with no counterpart
+// here.
 // The file builds with -fmad=false and uses jnp.hypot's formula, and every
 // sum runs in the plain version's order, so the arithmetic matches the plain
 // PyTorch loop term for term.
@@ -67,8 +93,16 @@ enum {
   F_BCF, F_ACR, F_CR, F_M, F_MAX_STEER, F_STEER_LIMIT, F_KP, F_KI, F_KD, F_PID_DT,
   F_SEP, F_ARRIVAL, F_MAX_ACCEL, F_MAX_BRAKE, F_TAU_DEN, F_RATE_DT, F_COLL_R,
   F_STOP_STANDOFF, F_STOP_HEADWAY, F_STOP_LAT, F_DT_SUB, F_CF, F_IZ, F_FZF, F_FZR,
+  // NPC agents (traffic branch): behaviour preset, lane width, lane slew a
+  // tick, twice the wheelbase
+  F_P_MAXSPD, F_P_SAFET, F_P_MIND, F_P_ACC, F_P_DEC, F_LANE_W, F_LANE_STEP, F_TWO_L,
   F_COUNT
 };
+
+// per-slot NPC state of the traffic branch, lane-minor in shared memory
+// (element k of lane t at [k * THREADS + t]): the slots at the start of the
+// tick (X .. SP), their new state (NX .. NVY) and the lane offsets / targets
+enum { N_X, N_Y, N_VX, N_VY, N_SP, N_NX, N_NY, N_NVX, N_NVY, N_OFF, N_TGT, N_COUNT };
 
 struct TickArgs {
   const float* ego;       // (B, 9) x y phi vx vy omega ax ay steer
@@ -89,7 +123,7 @@ struct TickArgs {
   float* pbuf_out;        // (B, NB)
   int* pcnt_out;          // (B,)
   float* plast_out;       // (B,)
-  float* obsxy_out;       // (B, 2, K)
+  float* obsxy_out;       // (B, 2, K) x y; traffic: (B, 4, K) x y vx vy
   bool* arrived_out;      // (B,)
   float* metrics;         // (8, B, n_ticks)
   const float* lights;    // (B, 6, L) x y period offset green_frac valid, or null
@@ -97,8 +131,18 @@ struct TickArgs {
   float* mpc_z_out;       // (B, nu) MPC only
   float* mpc_ud_out;      // (B, nu)
   int* admm_out;          // (B,) ticks that ran the box ADMM
+  const float* gpx;       // traffic: (B, NG) global path x
+  const float* gpy;       // (B, NG) y
+  const float* gpth;      // (B, NG) theta
+  const int* nidx;        // traffic: (B, K) NPC match indices
+  const float* lane_off;  // (B, K) lane offsets
+  const float* lane_tgt;  // (B, K) lane targets
+  const bool* agent;      // (B, K) agent slots
+  int* nidx_out;          // traffic: (B, K) NPC match indices
+  float* off_out;         // (B, K) lane offsets
+  float* tgt_out;         // (B, K) lane targets
   int B, K, NP, ND, NB, n_ticks, n_tab, L;
-  int substeps, raw, nu, mpc_iters;
+  int substeps, raw, nu, mpc_iters, NG;
   float f[F_COUNT];
 };
 
@@ -201,9 +245,215 @@ __device__ float mpc_tick(const float* r0, const float* r1, float wf, float e0,
   return sZ[tid];
 }
 
-template <bool MPC, bool DYN, bool GENERAL>
+// ---- NPC agents (traffic branch, sim/npc.py) ----
+
+// One corridor of slot k: the others' offsets in the NPC's heading frame
+// (ck, sk) about its position shifted by `shift` along the normal (-sk, ck):
+// others - (npc + shift * n), the JAX form of npc.lead_info / corridor_free.
+struct Corridor {
+  float cx, cy, ck, sk;
+  __device__ Corridor(float xk, float yk, float ck_, float sk_, float shift)
+      : cx(xk + shift * -sk_), cy(yk + shift * ck_), ck(ck_), sk(sk_) {}
+  __device__ __forceinline__ void frame(float ox, float oy, float& dl, float& dlat) const {
+    const float dx = ox - cx, dy = oy - cy;
+    dl = dx * ck + dy * sk;
+    dlat = -dx * sk + dy * ck;
+  }
+};
+
+// npc.lead_info: the nearest actor ahead within |lateral| < 2 among the
+// other valid slots (as they stood at the start of the tick) and the ego;
+// the first minimum wins, so a slot beats the ego on an exact tie. Nothing
+// ahead: gap 1e4, speed 100.
+__device__ void npc_lead(const Corridor& c, int k, int K, unsigned vmask, const float* sX,
+                         const float* sY, const float* sSP, float ex, float ey, float espd,
+                         int tid, float& gap, float& v) {
+  gap = INFINITY;
+  v = 0.f;
+  for (int j = 0; j < K; ++j) {
+    if (j == k || !((vmask >> j) & 1u)) continue;
+    float dl, dlat;
+    c.frame(sX[j * THREADS + tid], sY[j * THREADS + tid], dl, dlat);
+    if (dl > 0.5f && fabsf(dlat) < 2.0f && dl < gap) {
+      gap = dl;
+      v = sSP[j * THREADS + tid];
+    }
+  }
+  float dl, dlat;
+  c.frame(ex, ey, dl, dlat);
+  if (dl > 0.5f && fabsf(dlat) < 2.0f && dl < gap) {
+    gap = dl;
+    v = espd;
+  }
+  if (!(gap < INFINITY)) {
+    gap = 1e4f;
+    v = 100.f;
+  }
+}
+
+// npc.corridor_free: no other valid slot nor the ego within [-8, 20) m
+// along and |lateral| < 1.8 m of the corridor
+__device__ bool npc_corridor_free(const Corridor& c, int k, int K, unsigned vmask,
+                                  const float* sX, const float* sY, float ex, float ey,
+                                  int tid) {
+  bool occ = false;
+  for (int j = 0; j < K; ++j) {
+    if (j == k || !((vmask >> j) & 1u)) continue;
+    float dl, dlat;
+    c.frame(sX[j * THREADS + tid], sY[j * THREADS + tid], dl, dlat);
+    occ = occ || (dl > -8.f && dl < 20.f && fabsf(dlat) < 1.8f);
+  }
+  float dl, dlat;
+  c.frame(ex, ey, dl, dlat);
+  occ = occ || (dl > -8.f && dl < 20.f && fabsf(dlat) < 1.8f);
+  return !occ;
+}
+
+// traffic_light.stop_distance of an NPC (vx = its speed, vy = 0): the
+// nearest red stop line ahead in its corridor, +inf when none
+__device__ float npc_stop_distance(const float* F, const float* tl, int L, float t_abs,
+                                   float xk, float yk, float phik, float ck, float sk,
+                                   float spk) {
+  const float vxw = spk * ck - 0.f * sk;
+  const float vyw = 0.f * ck + spk * sk;
+  const float spd = max_nan(hypot_j(vxw, vyw), 1e-3f);
+  const bool slow = spd < 0.5f;
+  const float den = slow ? 1.f : spd;
+  const float ux = slow ? cosf(phik) : vxw / den;
+  const float uy = slow ? sinf(phik) : vyw / den;
+  float d = INFINITY;
+  for (int l = 0; l < L; ++l) {
+    const float per = tl[2 * L + l];
+    const float phase = floored_mod(t_abs + tl[3 * L + l], fmaxf(per, 1e-3f));
+    const bool red = tl[5 * L + l] > 0.5f && !(phase < tl[4 * L + l] * per);
+    const float dxl = tl[l] - xk, dyl = tl[L + l] - yk;
+    const float dl = dxl * ux + dyl * uy;
+    const float dlat = -dxl * uy + dyl * ux;
+    if (red && dl > 0.f && fabsf(dlat) < F[F_STOP_LAT]) d = fminf(d, dl);
+  }
+  return d;
+}
+
+// One NPC tick of every slot of lane `tid` (closed_loop._advance_npcs):
+// slew every lane offset; each live agent slot then reads the other slots
+// from the tick-start copy (sn[N_X .. N_SP]) and the ego at its new pose,
+// and writes its new state to sn[N_NX .. N_NVY] (a simultaneous update);
+// walker, static and invalid slots move at constant velocity. The agent:
+// own-lane and target-lane leads, the red stop line as a stationary lead,
+// three corridor checks, the lane decision, the 32-row forward first-minimum
+// match, the speed-scaled look-ahead row, pure pursuit, IDM and the
+// kinematic bicycle.
+__device__ void npc_advance(const float* F, int K, int NG, const float* gx, const float* gy,
+                            const float* gth, unsigned vmask, unsigned amask, float ex,
+                            float ey, float espd, const float* tl, int L, float t_abs,
+                            float* sn, int* sIdx, int tid) {
+  const int P = KMAX * THREADS;  // one per-slot array
+  float *sX = sn + N_X * P, *sY = sn + N_Y * P, *sVX = sn + N_VX * P, *sVY = sn + N_VY * P;
+  float *sSP = sn + N_SP * P, *sOff = sn + N_OFF * P, *sTgt = sn + N_TGT * P;
+  const float dt = F[F_DT];
+  const float step = F[F_LANE_STEP];
+  for (int k = 0; k < K; ++k) {
+    const int o = k * THREADS + tid;
+    sOff[o] = sOff[o] + clip(sTgt[o] - sOff[o], -step, step);
+  }
+  const float lane_w = F[F_LANE_W];
+  for (int k = 0; k < K; ++k) {
+    const int o = k * THREADS + tid;
+    const float xk = sX[o], yk = sY[o], vxk = sVX[o], vyk = sVY[o];
+    if (!((amask >> k) & 1u)) {
+      sn[N_NX * P + o] = xk + vxk * dt;
+      sn[N_NY * P + o] = yk + vyk * dt;
+      sn[N_NVX * P + o] = vxk;
+      sn[N_NVY * P + o] = vyk;
+      continue;
+    }
+    const float spk = sSP[o];
+    const float phik = spk > 0.1f ? atan2f(vyk, vxk) : 0.f;
+    const float ck = cosf(phik), sk = sinf(phik);
+    // the lateral offset from the path at the carried index (clamped into
+    // the path for memory safety; the carried index is always inside it)
+    const int idx_k = sIdx[o];
+    const int ic = min(max(idx_k, 0), NG - 1);
+    const float th_i = gth[ic];
+    const float l_now = -(xk - gx[ic]) * sinf(th_i) + (yk - gy[ic]) * cosf(th_i);
+    const float tgt_k = sTgt[o];
+
+    float gap_own, v_own, gap_tgt, v_tgt;
+    npc_lead(Corridor(xk, yk, ck, sk, -l_now), k, K, vmask, sX, sY, sSP, ex, ey, espd, tid,
+             gap_own, v_own);
+    npc_lead(Corridor(xk, yk, ck, sk, tgt_k - l_now), k, K, vmask, sX, sY, sSP, ex, ey,
+             espd, tid, gap_tgt, v_tgt);
+    if (L > 0) {
+      const float d_light = npc_stop_distance(F, tl, L, t_abs, xk, yk, phik, ck, sk, spk);
+      v_tgt = d_light < gap_tgt ? 0.f : v_tgt;
+      gap_tgt = fminf(gap_tgt, d_light);
+    }
+    const bool left_free = npc_corridor_free(Corridor(xk, yk, ck, sk, lane_w - l_now), k, K,
+                                             vmask, sX, sY, ex, ey, tid);
+    const bool right_free = npc_corridor_free(Corridor(xk, yk, ck, sk, -lane_w - l_now), k,
+                                              K, vmask, sX, sY, ex, ey, tid);
+    const bool own_free = npc_corridor_free(Corridor(xk, yk, ck, sk, -l_now), k, K, vmask,
+                                            sX, sY, ex, ey, tid);
+
+    // npc.lane_change_decision
+    const float press = F[F_P_MIND] + spk * F[F_P_SAFET];
+    const bool blocked = gap_own < 1.5f * press && v_own < 0.8f * F[F_P_MAXSPD];
+    const bool in_lane = fabsf(tgt_k) < 0.1f;
+    const bool go_left = blocked && in_lane && left_free;
+    const bool go_right = blocked && in_lane && !left_free && right_free;
+    float tgt_new = go_left ? lane_w : (go_right ? -lane_w : tgt_k);
+    if (!in_lane && own_free && !blocked) tgt_new = 0.f;
+
+    // npc.npc_step: forward-windowed first-minimum match
+    const int lo = min(max(idx_k, 0), max(NG - 32, 0));
+    const int hi = min(lo + 32, NG);
+    float best = INFINITY;
+    int idx2 = 0;
+    for (int r = lo; r < hi; ++r) {
+      const float dx = gx[r] - xk, dy = gy[r] - yk;
+      const float d = dx * dx + dy * dy;
+      if (d < best) {
+        best = d;
+        idx2 = r;
+      }
+    }
+    const int look = min(max(idx2 + 2 + (int)(spk * 0.25f), 0), NG - 1);
+    const float th_l = gth[look];
+    const float off = sOff[o];
+    const float dxp = (gx[look] - off * sinf(th_l)) - xk;
+    const float dyp = (gy[look] + off * cosf(th_l)) - yk;
+    float alpha = atan2f(dyp, dxp) - phik;
+    alpha = atan2f(sinf(alpha), cosf(alpha));
+    const float ld = max_nan(hypot_j(dxp, dyp), 1.f);
+    const float delta = atan2f(F[F_TWO_L] * sinf(alpha), ld);
+    const float steer = clip(delta / F[F_MAX_STEER], -1.f, 1.f);
+    // npc.idm_accel
+    const float den = 2.f * sqrtf(F[F_P_ACC] * F[F_P_DEC]);
+    const float s_star =
+        F[F_P_MIND] + max_nan(spk * F[F_P_SAFET] + spk * (spk - v_tgt) / den, 0.f);
+    const float r = spk / max_nan(F[F_P_MAXSPD], 0.1f);
+    const float q = s_star / max_nan(gap_tgt, 0.5f);
+    const float acc = clip(F[F_P_ACC] * ((1.f - (r * r) * (r * r)) - q * q), -F[F_P_DEC],
+                           F[F_P_ACC]);
+    // kinematic bicycle, no actuator lag
+    const float v2 = max_nan(spk + acc * dt, 0.f);
+    const float om2 = v2 * tanf(steer * F[F_MAX_STEER]) / F[F_AB];
+    const float phi2 = phik + om2 * dt;
+    const float c2 = cosf(phi2), s2 = sinf(phi2);
+    sn[N_NX * P + o] = xk + v2 * c2 * dt;
+    sn[N_NY * P + o] = yk + v2 * s2 * dt;
+    sn[N_NVX * P + o] = v2 * c2;
+    sn[N_NVY * P + o] = v2 * s2;
+    sIdx[o] = idx2;
+    sTgt[o] = tgt_new;
+  }
+}
+
+template <bool MPC, bool DYN, bool GENERAL, bool TRAFFIC = false>
 __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   __shared__ float s_tab[MPC ? 1 : TABMAX * 4];
+  __shared__ float s_npc[TRAFFIC ? N_COUNT * KMAX * THREADS : 1];
+  __shared__ int s_nidx[TRAFFIC ? KMAX * THREADS : 1];
   extern __shared__ float4 dsm4[];
   float* dsm = reinterpret_cast<float*>(dsm4);
   const int nu = MPC ? a.nu : 0;
@@ -278,6 +528,26 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   const int L = a.L;
   const float* tl = L > 0 ? a.lights + (size_t)b * 6 * L : nullptr;
   const float t_cycle = L > 0 ? a.t0[b] : 0.f;
+
+  // traffic: the lane's global path, its NPC lane state and match indices in
+  // shared memory, the valid and live-agent slots as bit masks
+  const int NG = TRAFFIC ? a.NG : 0;
+  const size_t gb = (size_t)b * NG, nb = (size_t)b * K;
+  const float* gx = TRAFFIC ? a.gpx + gb : nullptr;
+  const float* gy = TRAFFIC ? a.gpy + gb : nullptr;
+  const float* gth = TRAFFIC ? a.gpth + gb : nullptr;
+  unsigned vmask = 0u, amask = 0u;
+  if constexpr (TRAFFIC) {
+    for (int k = 0; k < K; ++k) {
+      const int o = k * THREADS + tid;
+      s_nidx[o] = a.nidx[nb + k];
+      s_npc[N_OFF * KMAX * THREADS + o] = a.lane_off[nb + k];
+      s_npc[N_TGT * KMAX * THREADS + o] = a.lane_tgt[nb + k];
+      const bool valid = ob[4 * K + k] > 0.5f;
+      vmask |= valid ? 1u << k : 0u;
+      amask |= (valid && a.agent[nb + k]) ? 1u << k : 0u;
+    }
+  }
 
   for (int i = 0; i < a.n_ticks; ++i) {
     // planned speed at t_rel: uniform hat, two nonzero weights
@@ -442,12 +712,40 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
       }
     }
 
-    // obstacles advance; collision check
+    // obstacles advance (traffic: the NPC agents' tick); collision check
+    if constexpr (TRAFFIC) {
+      const int P = KMAX * THREADS;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        if (k < K) {
+          const int o = k * THREADS + tid;
+          s_npc[N_X * P + o] = ox[k];
+          s_npc[N_Y * P + o] = oy[k];
+          s_npc[N_VX * P + o] = ovx[k];
+          s_npc[N_VY * P + o] = ovy[k];
+          s_npc[N_SP * P + o] = hypot_j(ovx[k], ovy[k]);
+        }
+      }
+      npc_advance(F, K, NG, gx, gy, gth, vmask, amask, x, y, hypot_j(vx, vy),
+                  tl, L, t_cycle + t_rel, s_npc, s_nidx, tid);
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        if (k < K) {
+          const int o = k * THREADS + tid;
+          ox[k] = s_npc[N_NX * P + o];
+          oy[k] = s_npc[N_NY * P + o];
+          ovx[k] = s_npc[N_NVX * P + o];
+          ovy[k] = s_npc[N_NVY * P + o];
+        }
+      }
+    }
     bool collided = false;
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
-      ox[k] = ox[k] + ovx[k] * dt;
-      oy[k] = oy[k] + ovy[k] * dt;
+      if constexpr (!TRAFFIC) {
+        ox[k] = ox[k] + ovx[k] * dt;
+        oy[k] = oy[k] + ovy[k] * dt;
+      }
       collided = collided || (ovalid[k] && hypot_j(ox[k] - x, oy[k] - y) < coll_r);
     }
 
@@ -478,9 +776,28 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   }
   a.pcnt_out[b] = cnt;
   a.plast_out[b] = last;
-  for (int k = 0; k < K; ++k) {
-    a.obsxy_out[(size_t)b * 2 * K + k] = ox[k];
-    a.obsxy_out[(size_t)b * 2 * K + K + k] = oy[k];
+  if constexpr (TRAFFIC) {
+    float* oo = a.obsxy_out + (size_t)b * 4 * K;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < K) {
+        oo[k] = ox[k];
+        oo[K + k] = oy[k];
+        oo[2 * K + k] = ovx[k];
+        oo[3 * K + k] = ovy[k];
+      }
+    }
+    for (int k = 0; k < K; ++k) {
+      const int o = k * THREADS + tid;
+      a.nidx_out[nb + k] = s_nidx[o];
+      a.off_out[nb + k] = s_npc[N_OFF * KMAX * THREADS + o];
+      a.tgt_out[nb + k] = s_npc[N_TGT * KMAX * THREADS + o];
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      a.obsxy_out[(size_t)b * 2 * K + k] = ox[k];
+      a.obsxy_out[(size_t)b * 2 * K + K + k] = oy[k];
+    }
   }
   a.arrived_out[b] = arrived;
   if constexpr (MPC) {
@@ -533,6 +850,13 @@ TickArgs unpack(void* const* ptrs, const float* fparams, const int* iparams,
   a.raw = general ? iparams[11] : 0;
   a.nu = general ? iparams[12] : 0;
   a.mpc_iters = general ? iparams[13] : 0;
+  a.gpx = a.gpy = a.gpth = nullptr;
+  a.nidx = nullptr;
+  a.lane_off = a.lane_tgt = nullptr;
+  a.agent = nullptr;
+  a.nidx_out = nullptr;
+  a.off_out = a.tgt_out = nullptr;
+  a.NG = 0;
   for (int j = 0; j < F_COUNT; ++j) a.f[j] = fparams[j];
   return a;
 }
@@ -543,7 +867,7 @@ bool valid_args(const TickArgs& a) {
          a.substeps >= 1;
 }
 
-template <bool MPC, bool DYN>
+template <bool MPC, bool DYN, bool TRAFFIC>
 int launch_variant(const TickArgs& a, cudaStream_t stream) {
   size_t smem = 0;
   if (MPC) {
@@ -551,14 +875,14 @@ int launch_variant(const TickArgs& a, cudaStream_t stream) {
     smem = sizeof(float) * ((size_t)a.n_tab * (a.nu * a.nu + 10 * a.nu) +
                             (size_t)(a.nu * a.nu + 5 * a.nu) * THREADS);
     cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&tick_kernel<MPC, DYN, true>),
+        reinterpret_cast<const void*>(&tick_kernel<MPC, DYN, true, TRAFFIC>),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   } else if (a.n_tab > TABMAX) {
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (a.B + THREADS - 1) / THREADS;
-  tick_kernel<MPC, DYN, true><<<blocks, THREADS, smem, stream>>>(a);
+  tick_kernel<MPC, DYN, true, TRAFFIC><<<blocks, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -587,6 +911,38 @@ extern "C" int tick_variant(void* const* ptrs, const float* fparams, const int* 
   if (a.B <= 0) return 0;
   const bool mpc = iparams[8] != 0, dyn = iparams[9] != 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mpc) return dyn ? launch_variant<true, true>(a, s) : launch_variant<true, false>(a, s);
-  return dyn ? launch_variant<false, true>(a, s) : launch_variant<false, false>(a, s);
+  if (mpc) {
+    return dyn ? launch_variant<true, true, false>(a, s) : launch_variant<true, false, false>(a, s);
+  }
+  return dyn ? launch_variant<false, true, false>(a, s) : launch_variant<false, false, false>(a, s);
+}
+
+// The agent-traffic branch (K7), every controller / plant pair, with or
+// without lights: ptrs and iparams as tick_variant's, then ptrs (global path
+// x, y, theta; NPC indices, lane offsets, lane targets, agent flags; their
+// three outputs) and iparams (NG); obsxy_out is (B, 4, K).
+extern "C" int tick_traffic(void* const* ptrs, const float* fparams, const int* iparams,
+                            void* stream) {
+  TickArgs a = unpack(ptrs, fparams, iparams, true);
+  a.gpx = (const float*)ptrs[26];
+  a.gpy = (const float*)ptrs[27];
+  a.gpth = (const float*)ptrs[28];
+  a.nidx = (const int*)ptrs[29];
+  a.lane_off = (const float*)ptrs[30];
+  a.lane_tgt = (const float*)ptrs[31];
+  a.agent = (const bool*)ptrs[32];
+  a.nidx_out = (int*)ptrs[33];
+  a.off_out = (float*)ptrs[34];
+  a.tgt_out = (float*)ptrs[35];
+  a.NG = iparams[14];
+  bool null = false;
+  for (int j = 26; j < 36; ++j) null |= ptrs[j] == nullptr;
+  if (!valid_args(a) || a.NG < 1 || null) return (int)cudaErrorInvalidValue;
+  if (a.B <= 0) return 0;
+  const bool mpc = iparams[8] != 0, dyn = iparams[9] != 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mpc) {
+    return dyn ? launch_variant<true, true, true>(a, s) : launch_variant<true, false, true>(a, s);
+  }
+  return dyn ? launch_variant<false, true, true>(a, s) : launch_variant<false, false, true>(a, s);
 }

@@ -2,9 +2,10 @@
 
 Drives ``closed_loop.simulate_full`` (path + S-T speed planning) at batch
 4096 with 256-point paths on one NVIDIA card, at config 5 (LQR + kinematic
-plant) or, with ``--config 4``, at config 4 (MPC + dynamic bicycle), and
-prints JSON lines. It breaks a cycle down; the end-to-end rate (cycles/s)
-is ``chip_smoke.py``'s.
+plant) or, with ``--config 4``, at config 4 (MPC + dynamic bicycle), or,
+with ``--config 7``, ``closed_loop.simulate_traffic`` at config 7 (the full
+EM cycle with NPC agents, normal preset), and prints JSON lines. It breaks
+a cycle down; the end-to-end rate (cycles/s) is ``chip_smoke.py``'s.
 
 1. ``device``: from a ``torch.profiler`` trace of an unsynchronised
    2-cycle run, the device events per cycle, the device busy time per
@@ -24,7 +25,7 @@ is ``chip_smoke.py``'s.
 Run from the root of a checkout, on a machine with the card, after
 ``chip_smoke.py`` on the same machine:
 
-    python3 chip_smoke.py --summary e2e.json && python3 profile_port.py --e2e e2e.json [--config 4]
+    python3 chip_smoke.py --summary e2e.json && python3 profile_port.py --e2e e2e.json [--config 4|7]
 
 Imports no JAX. Fails when there is no card or the trace holds no device
 events.
@@ -47,7 +48,7 @@ N_PLANS = 2
 KERNELS = {"qp_admm (path + speed sites)": "qp_admm_warm_kernel",
            "path_obs_costs": "path_obs_kernel",
            "speed_dp": "speed_dp_kernel",
-           "tick (K3; K5 + K6 at config 4)": "tick_kernel"}
+           "tick (K3; K5 + K6 at config 4; K7 at config 7)": "tick_kernel"}
 
 
 def _stage_targets():
@@ -87,6 +88,7 @@ def _stage_targets():
         (closed_loop, "_all_finite", "plan_guards"),
         (closed_loop, "_sanitize", "plan_guards"),
         (closed_loop, "run_ticks", "ticks (tick kernel)"),
+        (closed_loop, "run_traffic_ticks", "ticks (tick kernel, NPC agents)"),
     ]
 
 
@@ -156,14 +158,18 @@ def _busy_us(evs) -> float:
     return total
 
 
-def _run(sc, cfg):
+def _run(sc, cfg, traffic: bool):
     import torch
 
     from emplanner_carla_tpu_torch.sim import closed_loop
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = closed_loop.simulate_full(*sc, cfg, device="cuda")
+    if traffic:
+        out = closed_loop.simulate_traffic(*sc, cfg, behavior="normal", full=True,
+                                           device="cuda")
+    else:
+        out = closed_loop.simulate_full(*sc, cfg, device="cuda")
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -173,8 +179,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--e2e", help="chip_smoke.py --summary output, run just before")
-    ap.add_argument("--config", type=int, choices=(4, 5), default=5,
-                    help="BASELINE config: 5 (LQR, kinematic) or 4 (MPC, dynamic)")
+    ap.add_argument("--config", type=int, choices=(4, 5, 7), default=5,
+                    help="BASELINE config: 5 (LQR, kinematic), 4 (MPC, dynamic) or 7 "
+                         "(NPC agents, LQR, kinematic)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device; this script runs only on the GPU",
@@ -203,11 +210,12 @@ def main() -> int:
             plant=dataclasses.replace(full.plant, kind="dynamic"))
     cfg = dataclasses.replace(full, loop=dataclasses.replace(full.loop, n_plans=N_PLANS))
     sc = scenario.batch_scenarios(SEED, BATCH, cfg, device="cuda")
-    _run(sc, cfg)                                    # warm-up: allocator, caches
+    traffic = opts.config == 7
+    _run(sc, cfg, traffic)                           # warm-up: allocator, caches
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        _, p_wall = _run(sc, cfg)
+        _, p_wall = _run(sc, cfg, traffic)
     evs = _device_events(prof)
     busy = _busy_us(evs) / N_PLANS
     kern = {k: sum(e.time_range.elapsed_us() for e in evs if sym in e.name) / N_PLANS
@@ -216,7 +224,7 @@ def main() -> int:
     if opts.e2e:
         with open(opts.e2e) as fh:
             # chip_smoke.py's name of this path
-            path = f"simulate_full config {opts.config}"
+            path = f"simulate_{'traffic' if traffic else 'full'} config {opts.config}"
             e2e_ms = json.load(fh)["paths"][path]["ms_per_cycle"]
     print(json.dumps({"config": opts.config, "device": {
         "profiled_ms_per_cycle": p_wall / N_PLANS * 1e3,
@@ -229,7 +237,7 @@ def main() -> int:
         "kernel_ms_per_cycle": {k: v / 1e3 for k, v in kern.items()}}}), flush=True)
 
     with _Stages(), profile(activities=acts) as sprof:
-        _, s_wall = _run(sc, cfg)
+        _, s_wall = _run(sc, cfg, traffic)
     sevs = _device_events(sprof)
     ranges = [(e.name[len("stage:"):], e.time_range.start, e.time_range.end)
               for e in sprof.events()

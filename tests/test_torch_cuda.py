@@ -1,7 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version (the tick kernel in every controller / plant instantiation, the QP
-kernel warm and cold at both sites), and the loops on the GPU against the
-CPU. Every test here needs
+version (the tick kernel in every controller / plant instantiation and its
+agent-traffic branch, the QP kernel warm and cold at both sites), and the
+loops on the GPU against the CPU. Every test here needs
 an NVIDIA GPU with nvcc and skips elsewhere. The file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -24,7 +24,8 @@ from emplanner_carla_tpu_torch.ops import frenet
 from emplanner_carla_tpu_torch.types import STSegments, tree_to
 from emplanner_carla_tpu_torch.config import mpc_feedforward_variant
 from torch_port_helpers import (  # noqa: F401
-    assert_metrics_match, assert_qp_close, assert_tick_bar, cuda_device, np_of, t32,
+    assert_metrics_match, assert_qp_close, assert_tick_bar, assert_traffic_bar, cuda_device,
+    np_of, t32,
 )
 
 CFG = EMConfig(loop=dataclasses.replace(EMConfig().loop, n_plans=2, plan_every=20))
@@ -343,3 +344,94 @@ def test_simulate_full_config4_on_card_matches_cpu(cuda_device):
     m_cpu_np = closed_loop.TickMetrics(*[np_of(a) for a in m_cpu])
     assert_metrics_match(tree_to(m_gpu, "cpu"), m_cpu_np,
                          closed_loop.TickMetrics._fields, "config4.")
+
+
+def _traffic_args(device, cfg=CFG, B=96):
+    """One agent-traffic cycle's tick inputs from the port's own first full
+    EM plan on the bench mix with its walker: odd lanes start with their
+    agent mid lane change, and every third lane's walker slot becomes a
+    second agent 12 m behind the first and 30 % faster (two agents in one
+    lane, which shows a non-simultaneous update). Returns (args, kw) of
+    ``run_traffic_ticks_kernel`` without lights."""
+    sc = scenario.batch_scenarios(3, B, CFG, device=device, n_path=96, with_walker=True)
+    gp, obs = sc.global_path, sc.obstacles
+    K, d0 = obs.x.shape[1], CFG.n_static_obs
+    two = torch.arange(B, device=device) % 3 == 0
+    x, y, vx, vy = (a.clone() for a in (obs.x, obs.y, obs.vx, obs.vy))
+    head = torch.atan2(obs.vy[:, d0], obs.vx[:, d0])
+    x[two, d0 + 1] = (obs.x[:, d0] - 12.0 * torch.cos(head))[two]
+    y[two, d0 + 1] = (obs.y[:, d0] - 12.0 * torch.sin(head))[two]
+    vx[two, d0 + 1] = 1.3 * obs.vx[two, d0]
+    vy[two, d0 + 1] = 1.3 * obs.vy[two, d0]
+    obs = obs._replace(x=x, y=y, vx=vx, vy=vy)
+    mi = frenet.nearest_index(sc.ego0.x, sc.ego0.y, gp)
+    res = em_planner.plan_full_cycle(gp, sc.ego0, obs, mi, CFG,
+                                     qp_warm=em_planner.warm_init(CFG, B, device, full=True))
+    agent = (torch.arange(K, device=device) >= d0) & (torch.hypot(obs.vx, obs.vy) > 2.5)
+    mid = (torch.arange(B, device=device) % 2 == 1)[:, None] & agent
+    lane_tgt = torch.where(mid, 3.5, 0.0)
+    lane_off = torch.where(mid, torch.linspace(0.2, 3.3, B, device=device)[:, None], 0.0)
+    cs = vehicle.ControllerState.init(CFG.control, B, device)
+    traffic = closed_loop.TrafficInputs(gp, frenet.nearest_index(obs.x, obs.y, gp), lane_off,
+                                        lane_tgt, agent, "normal")
+    args = (sc.ego0, cs.pid.buffer, cs.pid.count, cs.pid.last_error, obs,
+            torch.nan_to_num(res.trajectory.speed).contiguous(),
+            torch.nan_to_num(res.trajectory.time[0]).contiguous(),
+            closed_loop._sanitize(res.path.target), torch.zeros(B, dtype=torch.bool, device=device),
+            res.path.feasible, torch.ones(B, dtype=torch.bool, device=device),
+            gp.x[:, -1].contiguous(), gp.y[:, -1].contiguous(), cfg)
+    return args, {"traffic": traffic}
+
+
+TRAFFIC_VARIANTS = {
+    "lqr_kinematic": (CFG, False), "lqr_kinematic_lights": (CFG, True),
+    "mpc_dynamic": (CONFIG4, False), "mpc_kinematic": (TICK_VARIANTS["mpc_kinematic"], True),
+    "lqr_dynamic": (TICK_VARIANTS["lqr_dynamic"], False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TRAFFIC_VARIANTS))
+def test_k7_kernel_matches_plain_on_card(cuda_device, name):
+    """The tick kernel's agent-traffic branch (K7) against its plain loop,
+    every controller / plant pair, with and without lights."""
+    cfg, with_lights = TRAFFIC_VARIANTS[name]
+    args, kw = _traffic_args(cuda_device, cfg)
+    args = args[:-1] + (cfg,)
+    B = args[0].x.shape[0]
+    if with_lights:
+        kw["lights"] = scenario.lights_on_path(
+            kw["traffic"].global_path, (25.0, 51.0), period=12.0, green_frac=0.5,
+            offsets=torch.linspace(0.0, 12.0, B + 1, device=cuda_device)[:B, None].expand(B, 2),
+            device=cuda_device)
+        kw["t0"] = torch.full((B,), 2.0, device=cuda_device)
+    key = closed_loop.tick_kernel_name(cfg, kw.get("lights"), traffic=True)
+    before = closed_loop.launches[key]
+    out_k = closed_loop.run_traffic_ticks(*args, **kw)
+    assert closed_loop.launches[key] == before + 1
+    out_p = closed_loop._traffic_ticks_base(*args, **kw)
+    torch.cuda.synchronize()
+    assert_traffic_bar(out_k, out_p)
+    assert bool((out_k[8] != kw["traffic"].npc_idx).any())
+    assert bool((out_k[10] != kw["traffic"].lane_tgt).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_simulate_traffic_on_card_matches_cpu(cuda_device, full):
+    sc = scenario.batch_scenarios(5, 16, CFG, device="cpu", n_path=96, with_walker=True)
+    lights = scenario.lights_on_path(sc.global_path, (25.0, 51.0), period=12.0,
+                                     offsets=torch.linspace(0, 11, 16)[:, None].expand(16, 2),
+                                     device="cpu") if full else None
+    key = "tick_traffic_lights" if full else "tick_traffic"
+    before = closed_loop.launches[key]
+    c_gpu, m_gpu = closed_loop.simulate_traffic(*sc, CFG, full=full, lights=lights,
+                                                device=cuda_device)
+    assert closed_loop.launches[key] - before == CFG.loop.n_plans
+    c_cpu, m_cpu = closed_loop.simulate_traffic(*sc, CFG, full=full, lights=lights,
+                                                device="cpu")
+    m_cpu_np = closed_loop.TickMetrics(*[np_of(a) for a in m_cpu])
+    assert_metrics_match(tree_to(m_gpu, "cpu"), m_cpu_np,
+                         closed_loop.TickMetrics._fields, "traffic.")
+    assert torch.equal(c_gpu.npc_path_index.cpu(), c_cpu.npc_path_index)
+    assert torch.equal(c_gpu.npc_lane.target.cpu(), c_cpu.npc_lane.target)

@@ -58,6 +58,10 @@ def assert_metrics_match(m_port, m_jax, fields, label=""):
                                        err_msg=f"{label}{name}")
 
 
+def _arr(t):
+    return np_of(t) if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
 def assert_tick_bar(out_port, out_ref):
     """One cycle's tick loop at the JAX package's own kernel-vs-scan bar
     (``tests/test_tick_pallas.py``): ego x, y, vx and the PID buffer within
@@ -68,10 +72,6 @@ def assert_tick_bar(out_port, out_ref):
     are (ego, buffer, count, last error, obstacles, arrived, metrics, ...)
     with the metrics indexable as TickMetrics' first eight channels, as
     tensors on any device or as arrays."""
-
-    def arr(t):
-        return np_of(t) if isinstance(t, torch.Tensor) else np.asarray(t)
-
     ego_a, buf_a, cnt_a, _, obs_a, arr_a, m_a = out_port[:7]
     ego_b, buf_b, cnt_b, _, obs_b, arr_b, m_b = out_ref[:7]
     for name, a, b, atol in (
@@ -80,11 +80,29 @@ def assert_tick_bar(out_port, out_ref):
         ("pid_buffer", buf_a, buf_b, 1e-3), ("obs.x", obs_a.x, obs_b.x, 1e-4),
         ("metric x", m_a[0], m_b[0], 1e-3), ("lateral_err", m_a[3], m_b[3], 2e-3),
     ):
-        np.testing.assert_allclose(arr(a), arr(b), atol=atol, err_msg=name)
+        np.testing.assert_allclose(_arr(a), _arr(b), atol=atol, err_msg=name)
     for name, a, b in (("pid_count", cnt_a, cnt_b), ("arrived", arr_a, arr_b),
                        ("collided", m_a[5], m_b[5]), ("arrived metric", m_a[6], m_b[6]),
                        ("feasible", m_a[7], m_b[7])):
-        np.testing.assert_array_equal(arr(a), arr(b), err_msg=name)
+        np.testing.assert_array_equal(_arr(a), _arr(b), err_msg=name)
+
+
+def assert_traffic_bar(out_port, out_ref):
+    """The agent-traffic tick loop (K7) at the JAX package's kernel-vs-scan
+    traffic bar: :func:`assert_tick_bar` for the ego, then NPC indices and
+    lane targets identical, lane offsets within 1e-5, NPC positions and
+    velocities within 1e-3. Both outputs are as :func:`assert_tick_bar`'s,
+    then (MPC state, NPC indices, lane offsets, lane targets)."""
+    assert_tick_bar(out_port, out_ref)
+    idx_a, off_a, tgt_a = out_port[8:11]
+    idx_b, off_b, tgt_b = out_ref[8:11]
+    np.testing.assert_array_equal(_arr(idx_a), _arr(idx_b), err_msg="npc index")
+    np.testing.assert_array_equal(_arr(tgt_a), _arr(tgt_b), err_msg="lane target")
+    np.testing.assert_allclose(_arr(off_a), _arr(off_b), rtol=0, atol=1e-5,
+                               err_msg="lane offset")
+    for f in ("x", "y", "vx", "vy"):
+        np.testing.assert_allclose(_arr(getattr(out_port[4], f)), _arr(getattr(out_ref[4], f)),
+                                   rtol=0, atol=1e-3, err_msg=f"obs.{f}")
 
 
 def assert_qp_close(x_a, st_a, x_b, st_b, atol=1e-4, y_rows=None):
