@@ -18,7 +18,11 @@ A solve dispatches on the device of ``q``: a CUDA tensor launches the
 hand-written kernel ``csrc/qp_admm.cu`` (the port of the JAX package's
 fused Pallas kernel, ``ops/qp_pallas.py make_pallas_qp``; the cold solve
 hands it a zero state), a CPU tensor runs :func:`warm_ladder_torch`, the
-plain PyTorch version of the same iteration.
+plain PyTorch version of the same iteration. The kernel runs its products
+on the tensor cores from TF32 pieces (the lane operand split in two, the
+constant in three), from constants that :func:`kernel_constants` pads and
+lays out for it; it holds at most :data:`KERNEL_N_MAX` variables
+and :data:`KERNEL_M_MAX` constraint rows.
 """
 
 from __future__ import annotations
@@ -35,7 +39,16 @@ from emplanner_carla_tpu_torch.types import Tensor
 __all__ = [
     "prefactor_constants", "make_prefactored_qp", "PrefactoredQP",
     "warm_ladder_torch", "warm_admm_kernel", "warm_zero_state", "solve_box_qp",
+    "kernel_layout", "kernel_constants", "check_kernel_limits",
 ]
+
+# the kernel's tile and limits (csrc/qp_admm.cu): 32 lanes a block, n <= 104
+# variables and m <= 184 constraint rows (its register tiles and its shared
+# memory, at most 232,448 bytes a block on the H100)
+KERNEL_LANES = 32
+KERNEL_N_MAX = 104
+KERNEL_M_MAX = 184
+SMEM_BYTES_MAX = 232_448
 
 # one counter per call site: the path QP and the speed QP, warm and cold, run
 # the same kernel
@@ -131,6 +144,19 @@ class PrefactoredQP:
             )
         return self._dev[key]
 
+    def kernel_consts(self, device) -> dict:
+        """The kernel's constants on ``device``: :func:`kernel_constants`'s
+        padded A and Kinv^T and A's block lists, beside :meth:`consts`."""
+        key = str(device) + ":kernel"
+        if key not in self._dev:
+            A_pad, KT_pad, blocks = kernel_constants(self.At, self.Kinv)
+            self._dev[key] = dict(
+                A_pad=torch.as_tensor(A_pad, device=device),
+                KT_pad=torch.as_tensor(KT_pad, device=device),
+                blocks=torch.as_tensor(blocks, device=device),
+                layout=kernel_layout(self.n, self.m))
+        return self._dev[key]
+
     def __call__(self, q: Tensor, l: Tensor, u: Tensor, state=None):
         if not self.warm:
             # the cold start is the warm ladder from zeros: z is clipped to
@@ -197,41 +223,104 @@ def warm_ladder_torch(solver: PrefactoredQP, q, l, u, state):
     return D * x, (x, z, y)
 
 
+def kernel_layout(n: int, m: int) -> dict:
+    """Shapes of the kernel's shared-memory layout for an (n, m) QP, as
+    ``csrc/qp_admm.cu`` computes them: n and m padded to the MMA's 8
+    (``n8``, ``m8``); the row pitches at which every shared-memory access of
+    a warp is free of bank conflicts: A's ``pa`` and the lane-operand
+    staging tiles' ``pv_m``, ``pv_n`` (k8 when k8 / 8 is odd, else k8 + 8: 8
+    or 24 mod 32), Kinv^T's ``pk`` (n8 + 4: 4 or 12 mod 16) and the scaled
+    bounds' ``pl`` (2 m8, plus 16 where that is a multiple of 32); and the
+    block's shared-memory bytes: A, one phase's Kinv^T, the bounds and the
+    three staging tiles of 32 lanes, and (at most) A's block lists."""
+    n8, m8 = -(-n // 8) * 8, -(-m // 8) * 8
+    row = lambda k: k if (k // 8) % 2 else k + 8  # noqa: E731
+    pa, pk, pl = row(n8), n8 + 4, 2 * m8 + (16 if (2 * m8) % 32 == 0 else 0)
+    kn, km = n8 // 8, m8 // 8
+    floats = (m8 * pa + n8 * pk + KERNEL_LANES * (pl + row(m8) + 2 * row(n8))
+              + kn + km + 2 + 2 * kn * km)
+    return dict(n8=n8, m8=m8, pa=pa, pk=pk, pv_m=row(m8), pv_n=row(n8), pl=pl,
+                smem_bytes=4 * floats)
+
+
+def kernel_constants(At: np.ndarray, Kinv: np.ndarray):
+    """The kernel's constants, NumPy: A (m, n) zero-padded to (m8, pa) and
+    each phase's Kinv (P, n, n) transposed and zero-padded to (P, n8, pk),
+    float32; and int32 lists of A's 8 x 8 blocks that are not all zero,
+    which the A^T v and A x products run over (the A matrices of the
+    planner's QPs are banded: 58 of the path QP's 299 blocks, 25 of the
+    speed QP's 91). The lists are ``[off1 | off3 | list1 | list3]``: for
+    column tile j of A^T v, the block rows i of A from ``list1``, at
+    ``blocks[off1[j]:off1[j + 1]]``; for row tile i of A x, the block columns
+    j, at ``blocks[kn + 1:][off3[i]:off3[i + 1]]`` (kn = n8 / 8). Padding and
+    skipped blocks are exact zeros, so every product is unchanged."""
+    m, n = At.shape
+    L = kernel_layout(n, m)
+    A_pad = np.zeros((L["m8"], L["pa"]), np.float32)
+    A_pad[:m, :n] = At
+    KT_pad = np.zeros((Kinv.shape[0], L["n8"], L["pk"]), np.float32)
+    KT_pad[:, :n, :n] = np.swapaxes(Kinv, 1, 2)
+    kn, km = L["n8"] // 8, L["m8"] // 8
+    nz = A_pad[:, :L["n8"]].reshape(km, 8, kn, 8).any(axis=(1, 3))   # (km, kn)
+    list1 = [np.flatnonzero(nz[:, j]) for j in range(kn)]
+    list3 = [np.flatnonzero(nz[i, :]) for i in range(km)]
+    # off1 indexes the array, off3 the array past off1; list1 follows off3
+    off1 = kn + km + 2 + np.concatenate([[0], np.cumsum([len(a) for a in list1])])
+    off3 = off1[-1] - (kn + 1) + np.concatenate([[0], np.cumsum([len(a) for a in list3])])
+    blocks = np.concatenate([off1, off3, *list1, *list3]).astype(np.int32)
+    return A_pad, KT_pad, blocks
+
+
+def check_kernel_limits(n: int, m: int) -> None:
+    """Raise ``ValueError`` naming the QP kernel's limit that an (n, m) QP
+    is past."""
+    if not (1 <= n <= KERNEL_N_MAX and 1 <= m <= KERNEL_M_MAX):
+        raise ValueError(
+            f"the QP kernel (csrc/qp_admm.cu) holds 1..{KERNEL_N_MAX} variables "
+            f"and 1..{KERNEL_M_MAX} constraint rows, got n {n}, m {m}")
+
+
 def _check(t: Tensor, shape, name: str) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous float32 CUDA tensor, "
                          f"got {t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 
 
 def warm_admm_kernel(solver: PrefactoredQP, q, l, u, state):
     """Launch ``csrc/qp_admm.cu`` on the current stream: the whole ladder
     (scaling, 3 phases x ``iters``, unscaling) from ``state`` in one kernel,
-    counted under the solver's call site."""
+    counted under the solver's call site. Raises ``ValueError`` before the
+    launch for a QP past the kernel's limits (checked first), then for a
+    tensor of the wrong dtype, shape or device."""
+    n, m = solver.n, solver.m
+    check_kernel_limits(n, m)
     require_fp32_matmul(q)
     B = q.shape[0]
-    n, m = solver.n, solver.m
     x0, z0, y0 = state
     for t, shp, nm in ((q, (B, n), "q"), (l, (B, m), "l"), (u, (B, m), "u"),
                        (x0, (B, n), "x_s"), (z0, (B, m), "z"),
                        (y0, (B, m), "y")):
         _check(t, shp, nm)
     k = solver.consts(q.device)
+    kk = solver.kernel_consts(q.device)
     x = torch.empty((B, n), dtype=torch.float32, device=q.device)
     xs = torch.empty_like(x)
     z = torch.empty((B, m), dtype=torch.float32, device=q.device)
     y = torch.empty_like(z)
-    fn = cuda.function("qp_admm", "qp_admm_warm", (ctypes.c_void_p,) * 15
-                       + (ctypes.c_int,) * 5 + (ctypes.c_float,) * 3
+    fn = cuda.function("qp_admm", "qp_admm_warm", (ctypes.c_void_p,) * 12
+                       + (ctypes.c_int,) + (ctypes.c_void_p,) * 4
+                       + (ctypes.c_int,) * 6 + (ctypes.c_float,) * 3
                        + (ctypes.c_void_p,))
     err = fn(
-        cuda.ptr(k["At"]), cuda.ptr(k["Kinv"]), cuda.ptr(k["rho"]),
+        cuda.ptr(kk["A_pad"]), cuda.ptr(kk["KT_pad"]), cuda.ptr(k["rho"]),
         cuda.ptr(k["D"]), cuda.ptr(k["E"]),
         cuda.ptr(q), cuda.ptr(l), cuda.ptr(u),
         cuda.ptr(x0), cuda.ptr(z0), cuda.ptr(y0),
+        cuda.ptr(kk["blocks"]), kk["blocks"].numel(),
         cuda.ptr(x), cuda.ptr(xs), cuda.ptr(z), cuda.ptr(y),
-        B, n, m, int(solver.rho.shape[0]), solver.iters,
+        B, n, m, kk["layout"]["pa"], int(solver.rho.shape[0]), solver.iters,
         float(solver.c), solver.sigma, solver.alpha,
         cuda.stream_of(q),
     )

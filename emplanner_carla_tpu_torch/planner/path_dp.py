@@ -191,10 +191,21 @@ def _transition_obstacle_costs_torch(obs_s, obs_l, obs_valid, plan_start_s,
     return out.reshape(B, cols - 1, rows, rows)
 
 
+# transition columns (cfg.cols - 1) the path-DP obstacle-cost kernel holds
+# (csrc/path_obs.cu)
+OBS_COLS_MAX = 16
+
+
 def transition_obstacle_costs_kernel(obs_s, obs_l, obs_valid, plan_start_s,
                                      cfg: PathPlanConfig) -> Tensor:
-    """Launch ``csrc/path_obs.cu``: one thread per (lane, lateral edge)."""
+    """Launch ``csrc/path_obs.cu``: one thread per (lane, lateral edge).
+    Raises ``ValueError`` past the kernel's column limit (checked first) or
+    for a tensor of the wrong dtype, shape or device."""
     rows, cols, m = cfg.rows, cfg.cols, cfg.n_edge_samples
+    if not 1 <= cols - 1 <= OBS_COLS_MAX:
+        raise ValueError(f"the path-DP obstacle-cost kernel (csrc/path_obs.cu) holds "
+                         f"1..{OBS_COLS_MAX} transition columns (cols - 1), got "
+                         f"{cols - 1}")
     B, K = obs_s.shape
     for t, nm, dt in ((obs_s, "obs_s", torch.float32),
                       (obs_l, "obs_l", torch.float32),

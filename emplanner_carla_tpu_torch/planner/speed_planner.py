@@ -317,12 +317,35 @@ def _speed_dp_torch(seg: STSegments, v0: Tensor,
                          end_col.to(torch.int32))
 
 
+# the speed-DP kernel's limits (csrc/speed_dp.cu): segment slots, stations,
+# columns and interior samples an edge; its shared-memory rows also need
+# 5 * K and (n_edge_samples - 2) * K to fit in n_s
+DP_K_MAX, DP_NS_MAX, DP_NT_MAX, DP_Q_MAX = 8, 64, 32, 8
+
+
+def check_dp_kernel_limits(K: int, cfg: SpeedPlanConfig) -> None:
+    """Raise ``ValueError`` naming the speed-DP kernel's limit that K
+    segment slots under ``cfg`` are past."""
+    n_s, n_t, q = cfg.n_s, cfg.n_t, cfg.n_edge_samples - 2
+    if not (1 <= K <= DP_K_MAX and 2 <= n_s <= DP_NS_MAX and 2 <= n_t <= DP_NT_MAX
+            and 0 <= q <= DP_Q_MAX and 5 * K <= n_s and q * K <= n_s):
+        raise ValueError(
+            f"the speed-DP kernel (csrc/speed_dp.cu) holds 1..{DP_K_MAX} segment "
+            f"slots, 2..{DP_NS_MAX} stations, 2..{DP_NT_MAX} columns and "
+            f"0..{DP_Q_MAX} interior samples an edge, with 5 * slots and samples "
+            f"* slots at most the stations; got {K} slots, {n_s} stations, {n_t} "
+            f"columns, {q} interior samples")
+
+
 def speed_dp_kernel(seg: STSegments, v0: Tensor,
                     cfg: SpeedPlanConfig) -> SpeedDPResult:
     """Launch ``csrc/speed_dp.cu``: the whole DP (obstacle edge costs, the
-    column recursion, termination and backtrack) in one kernel."""
+    column recursion, termination and backtrack) in one kernel. Raises
+    ``ValueError`` past the kernel's limits (checked first) or for a tensor
+    of the wrong dtype, shape or device."""
     dev = v0.device
     B, K = seg.valid.shape
+    check_dp_kernel_limits(K, cfg)
     n_s, n_t = cfg.n_s, cfg.n_t
     if not v0.is_cuda or v0.dtype != torch.float32 or tuple(v0.shape) != (B,):
         raise ValueError(f"v0: need a float32 CUDA tensor of shape {(B,)}, got "

@@ -55,8 +55,34 @@ launches = {"tick_lqr": 0, "tick_lqr_lights": 0, "tick_lqr_kinematic": 0,
 launches.update({"tick_traffic": 0, "tick_traffic_lights": 0,
                  **{f"tick_traffic_{c}_{p}": 0 for c in ("lqr", "mpc")
                     for p in ("kinematic", "dynamic")}})
-NU_MAX = 16  # MPC decision variables the tick kernel holds
-KMAX = 16    # obstacle slots the tick kernel holds
+# the tick kernel's limits (csrc/tick_lqr.cu)
+NU_MAX = 16     # MPC decision variables
+KMAX = 16       # obstacle slots, every entry point
+NB_MAX = 64     # PID buffer depth
+TAB_MAX = 256   # LQR gain-table rows
+SMEM_BYTES_MAX = 232_448  # shared memory of a block (the MPC tables and vectors)
+
+
+def check_tick_kernel_limits(K: int, NB: int, n_tab: int, nu: int = 0) -> None:
+    """Raise ``ValueError`` naming the tick kernel's limit that a launch
+    with K obstacle slots, a PID buffer of NB, an n_tab-row LQR or MPC table
+    and nu MPC variables (0: LQR) is past."""
+    if not 0 <= K <= KMAX:
+        raise ValueError(f"the tick kernel (csrc/tick_lqr.cu) holds at most {KMAX} "
+                         f"obstacle slots, got {K}")
+    if not 1 <= NB <= NB_MAX:
+        raise ValueError(f"the tick kernel holds a PID buffer of 1..{NB_MAX}, got {NB}")
+    if not nu and not 2 <= n_tab <= TAB_MAX:
+        raise ValueError(f"the tick kernel holds an LQR gain table of 2..{TAB_MAX} "
+                         f"rows, got {n_tab}")
+    if nu > NU_MAX:
+        raise ValueError(f"the tick kernel holds at most {NU_MAX} MPC variables, got "
+                         f"mpc_n * mpc_p = {nu}")
+    smem = 4 * (n_tab * (nu * nu + 10 * nu) + (nu * nu + 5 * nu) * 32) if nu else 0
+    if smem > SMEM_BYTES_MAX:
+        raise ValueError(f"the tick kernel's MPC tables need {smem} bytes of shared "
+                         f"memory, more than the {SMEM_BYTES_MAX} a block has "
+                         f"({n_tab} rows, {nu} variables)")
 
 
 class TickMetrics(NamedTuple):
@@ -306,6 +332,10 @@ def _launch_ticks(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime, target,
     ND = tspeed.shape[1]
     NB = pid_buf.shape[1]
     T = cfg.loop.plan_every
+    vp, cc = cfg.vehicle, cfg.control
+    mpc = cc.kind == "MPC"
+    nu = cc.mpc_n * cc.mpc_p if mpc else 0
+    check_tick_kernel_limits(K, NB, 2, nu)
     ego_in = torch.stack(list(ego), 1).contiguous()                 # (B, 9)
     obs_in = torch.stack(
         [obs.x, obs.y, obs.vx, obs.vy, obs.valid.to(torch.float32)], 1
@@ -324,17 +354,12 @@ def _launch_ticks(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime, target,
         tl_ptrs = [tl_in.data_ptr(), t0.data_ptr()]
     else:
         L, tl_ptrs = 0, [0, 0]
-    vp, cc = cfg.vehicle, cfg.control
-    mpc = cc.kind == "MPC"
-    nu = cc.mpc_n * cc.mpc_p if mpc else 0
     if mpc:
-        if nu > NU_MAX:
-            raise ValueError(f"the tick kernel holds at most {NU_MAX} MPC "
-                             f"variables, got mpc_n * mpc_p = {nu}")
         v0, dv, tabs = lateral.mpc_tables_on(vp, cc, str(dev))
         table = tabs["packed"]
     else:
         v0, dv, table = lateral.gain_table_on(vp, cc, str(dev))
+    check_tick_kernel_limits(K, NB, table.shape[0], nu)
     for t, shp, dt_, nm in (
         (ego_in, (B, 9), torch.float32, "ego"),
         (pid_buf, (B, NB), torch.float32, "pid_buffer"),
@@ -365,9 +390,6 @@ def _launch_ticks(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime, target,
     if traffic is not None:
         gp = traffic.global_path
         NG = gp.x.shape[1]
-        if K > KMAX:
-            raise ValueError(f"the traffic tick kernel holds at most {KMAX} "
-                             f"obstacle slots, got {K}")
         # read in place (simulate_traffic hands over contiguous tensors)
         tr_in = [t.contiguous() for t in (
             gp.x, gp.y, gp.theta, traffic.npc_idx, traffic.lane_off,

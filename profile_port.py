@@ -45,7 +45,7 @@ import time
 SEED = 1
 BATCH = 4096
 N_PLANS = 2
-KERNELS = {"qp_admm (path + speed sites)": "qp_admm_warm_kernel",
+KERNELS = {"qp_admm (path + speed sites)": "qp_admm_kernel",
            "path_obs_costs": "path_obs_kernel",
            "speed_dp": "speed_dp_kernel",
            "tick (K3; K5 + K6 at config 4; K7 at config 7)": "tick_kernel"}

@@ -54,7 +54,7 @@ TICK_FIELDS = closed_loop.TickMetrics._fields[:8]
 def test_k1_kernel_matches_plain_on_card(cuda_device):
     n = 25
     rng = np.random.default_rng(7)
-    B = 100  # not a multiple of the kernel's 16-lane tile
+    B = 100  # not a multiple of the kernel's 32-lane tile
     solver, _, _ = path_qp._solver_for(n, 4.0, CFG.path)
     nv, m = solver.n, solver.m
     q = np.zeros((B, nv), np.float32)
@@ -71,6 +71,67 @@ def test_k1_kernel_matches_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     assert_qp_close(np_of(x_k), [np_of(a) for a in st_k],
                     np_of(x_p), [np_of(a) for a in st_p])
+
+
+def _path_qp_inputs(solver, B, rng, device, n=25):
+    q = np.zeros((B, solver.n), np.float32)
+    q[:, 0:3 * n:3] = -500.0 * rng.normal(size=(B, n))
+    start = rng.normal(size=(B, 3)) * 0.5
+    u = np.concatenate([np.zeros((B, 2 * (n - 1))), rng.uniform(0, 8, (B, 4 * n)),
+                        start, np.zeros((B, 3)), np.full((B, n), 1e8)], 1)
+    l = np.concatenate([np.zeros((B, 2 * (n - 1))), np.full((B, 4 * n), -1e8),
+                        start, np.zeros((B, 3)), np.zeros((B, n))], 1)
+    return [t32(a, device) for a in (q, l, u)]
+
+
+@pytest.mark.cuda
+def test_k1_warm_chain_on_card(cuda_device):
+    """Three warm path-QP solves in a row, each from the state the previous
+    one carried out (the kernel's own on the card, the plain version's on its
+    side), with the bounds moving between solves as a replan moves them: the
+    K1 bar after every solve."""
+    rng = np.random.default_rng(3)
+    B = 100
+    solver = path_qp._solver_for(25, 4.0, CFG.path)[0]
+    st_k = st_p = t_qp.warm_zero_state(solver.n, solver.m, B, cuda_device)
+    for _ in range(3):
+        q, l, u = _path_qp_inputs(solver, B, rng, cuda_device)
+        x_k, st_k = t_qp.warm_admm_kernel(solver, q, l, u, st_k)
+        x_p, st_p = t_qp.warm_ladder_torch(solver, q, l, u, st_p)
+        torch.cuda.synchronize()
+        assert_qp_close(np_of(x_k), [np_of(a) for a in st_k],
+                        np_of(x_p), [np_of(a) for a in st_p])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("site", ["path", "speed"])
+def test_k1c_tile_edges_on_card(cuda_device, site, B):
+    """The cold ladder with one lane and with one lane past a 32-lane tile:
+    the lanes the last block computes on zeros are not stored, the others
+    hold the site's K1 bar."""
+    rng = np.random.default_rng(B)
+    if site == "path":
+        solver = path_qp._solver_for(25, 4.0, CFG.path, False)[0]
+        q, l, u = _path_qp_inputs(solver, B, rng, cuda_device)
+        atol = 1e-4
+    else:
+        sp = CFG.speed
+        solver = speed_planner._speed_solver(sp, warm=False)
+        seg, v0 = _random_segments(B, 2, cuda_device, seed=6)
+        dp = speed_planner._speed_dp_torch(seg, v0, sp)
+        path_s = torch.arange(96, device=cuda_device, dtype=torch.float32)[None].expand(B, 96) * 2.0
+        bounds = speed_planner.convex_space(dp, seg, path_s,
+                                            torch.full((B, 96), 0.01, device=cuda_device), sp)
+        q, l, u = speed_planner.speed_qp_problem(v0, torch.zeros(B, device=cuda_device),
+                                                 *bounds, sp)
+        atol = 1e-3
+    x_k = solver(q, l, u)
+    zero = t_qp.warm_zero_state(solver.n, solver.m, B, cuda_device)
+    x_p = t_qp.warm_ladder_torch(solver, q, l, u, zero)[0]
+    torch.cuda.synchronize()
+    assert x_k.shape == (B, solver.n)
+    np.testing.assert_allclose(np_of(x_k), np_of(x_p), rtol=1e-4, atol=atol)
 
 
 @pytest.mark.cuda
@@ -192,7 +253,9 @@ def test_k4_kernel_equals_plain_on_card(cuda_device, K):
 @pytest.mark.cuda
 def test_k1_speed_site_kernel_matches_plain_on_card(cuda_device):
     """K1 at n 51, m 99 (the speed QP) on bounds from the convex space of
-    random segments; the equality rows' dual is held by the next solve."""
+    random segments, at the speed site's bar (x, x_s, z at atol 1e-3, as
+    ``chip_smoke.py`` holds it); the equality rows' dual is held by the next
+    solve."""
     B = 100
     sp = CFG.speed
     seg, v0 = _random_segments(B, 2, cuda_device, seed=4)
@@ -212,8 +275,11 @@ def test_k1_speed_site_kernel_matches_plain_on_card(cuda_device):
     xk, stk = t_qp.warm_admm_kernel(solver, q, l, u, state)
     torch.cuda.synchronize()
     eq = speed_planner._speed_qp_constants(sp)[2]
+    # the speed site's K1 bar, atol 1e-3: at 1e-4 this input sits at the
+    # float32 noise floor, where the plain ladder on the CPU misses the plain
+    # ladder on the card (operation order alone)
     assert_qp_close(np_of(xk), [np_of(a) for a in stk], np_of(x_p),
-                    [np_of(a) for a in st_p], y_rows=~eq)
+                    [np_of(a) for a in st_p], atol=1e-3, y_rows=~eq)
     xk2, stk2 = t_qp.warm_admm_kernel(solver, q, l, u, stk)
     xp2, stp2 = t_qp.warm_ladder_torch(solver, q, l, u, st_p)
     torch.cuda.synchronize()

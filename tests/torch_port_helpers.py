@@ -124,6 +124,79 @@ def assert_qp_close(x_a, st_a, x_b, st_b, atol=1e-4, y_rows=None):
                                err_msg="y")
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (and the QP
+    kernel does on the int32 view): to nearest at mantissa bit 13, ties away
+    from zero, the low 13 mantissa bits zeroed."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split2(x: torch.Tensor):
+    """The QP kernel's lane-operand split: x = hi + lo + O(2^-22 |x|), both
+    TF32, rounded to nearest."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def split3(x: torch.Tensor):
+    """The QP kernel's constant-operand split, by truncation: x = hi + mid +
+    lo exactly, each TF32 (11 + 11 + 2 significant bits)."""
+    mask = torch.tensor(~0x1FFF, dtype=torch.int32)
+    hi = (x.contiguous().view(torch.int32) & mask).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & mask).view(torch.float32)
+    return hi, mid, r - mid
+
+
+def mm_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (lanes x k) @ b (k x cols) as the QP kernel forms it on the tensor
+    cores: a split in two TF32 pieces (:func:`split2`), b in three
+    (:func:`split3`); per k-step of 8, the five piece products above 2^-24 in
+    three partial sums (ah*bl + al*bm, ah*bm + al*bh, ah*bh), each rounded to
+    float32 here (the kernel unbiases the tensor cores' truncation of the
+    largest), added, and the k-steps summed in float32 in order."""
+    K = a.shape[1]
+    pad = -K % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ah, al = (p.double().reshape(a.shape[0], -1, 8) for p in split2(a))
+    bh, bm, bl = (p.double().reshape(-1, 8, b.shape[1]) for p in split3(b))
+    blk = lambda x, y: torch.einsum("bkj,kjn->kbn", x, y)  # noqa: E731
+    ps = (blk(ah, bl) + blk(al, bm)).float()
+    pm = (blk(ah, bm) + blk(al, bh)).float()
+    p = (ps + pm) + blk(ah, bh).float()
+    acc = torch.zeros_like(p[0])
+    for pk in p:
+        acc = acc + pk
+    return acc
+
+
+def warm_ladder_split(solver, q, l, u, state):
+    """The QP kernel's arithmetic in plain PyTorch on the CPU: the warm ladder
+    of ``ops.qp.warm_ladder_torch`` with its three products formed by
+    :func:`mm_split` and y / rho as y * (1 / rho)."""
+    k = solver.consts(q.device)
+    At, D, E = k["At"], k["D"], k["E"]
+    c = torch.tensor(solver.c)
+    sigma, alpha = solver.sigma, solver.alpha
+    qs = c * (D * q)
+    ls, us = E * l, E * u
+    x, z, y = state
+    z = torch.clamp(z, ls, us)
+    for ph in range(solver.rho.shape[0]):
+        rho = k["rho"][ph]
+        rinv = 1.0 / rho
+        KinvT = k["Kinv"][ph].T
+        for _ in range(solver.iters):
+            x = mm_split(sigma * x - qs + mm_split(rho * z - y, At), KinvT)
+            Ax_rel = alpha * mm_split(x, At.T) + (1.0 - alpha) * z
+            z_new = torch.clamp(Ax_rel + y * rinv, ls, us)
+            y = y + rho * (Ax_rel - z_new)
+            z = z_new
+    return D * x, (x, z, y)
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHILD = (
     "import pickle, sys\n"
