@@ -4,7 +4,7 @@ PyTorch version.
 
 Run from the root of a checkout, on a machine with the card:
 
-    python3 chip_smoke.py [--summary PATH] [--qp-baseline SOURCE]
+    python3 chip_smoke.py [--summary PATH]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -38,13 +38,12 @@ Phases (any failure exits non-zero and prints no result line):
      set tiled to the batch, and at the path site, on bench config 2's
      open-loop plan: x within the site's K1 bar;
    - for the QP kernel at its four sites also its tile, blocks a launch and
-     shared memory a block, and two bounds: its operations at the rates of
-     the units that do them at the required precision (the products' flops
-     x 3 passes at the dense TF32 rate, the elementwise flops at the FP32
-     rate; the JSON line's ``bound_ms``) and every flop at the FP32 rate
-     (``bound_fp32_ms``); with ``--qp-baseline SOURCE``, the device time of
-     that QP kernel source (the parent commit's, built beside the others) on
-     the same inputs (``parent_ms``);
+     shared memory a block, and two bounds, with the products counted over
+     A's nonzero entries (A is sparse, Kinv dense): its operations at the
+     rates of the units that do them at the required precision (the
+     products' flops x 3 passes at the dense TF32 rate, the elementwise
+     flops at the FP32 rate; the JSON line's ``bound_ms``) and every flop at
+     the FP32 rate (``bound_fp32_ms``);
    - from ``simulate_traffic`` at config 7 (full EM, NPC agents, normal
      preset), the tick kernel's agent-traffic branch (K7): LQR + kinematic,
      with the traffic lights, and MPC + dynamic (config 4's controller and
@@ -71,8 +70,7 @@ Phases (any failure exits non-zero and prints no result line):
    last line ``{"ok": true, "device": {...}}``.
 
 ``--summary PATH`` also writes the end-to-end medians there as JSON
-(``profile_port.py --e2e PATH`` reads them); ``--qp-baseline SOURCE`` times
-another QP kernel source beside the kernel (see phase 2). Needs no network and imports
+(``profile_port.py --e2e PATH`` reads them). Needs no network and imports
 no JAX.
 """
 
@@ -99,7 +97,7 @@ LIGHT_S = (30.0, 60.0)
 _EXTRA = ("y_max_abs_err", "candidates_in_window", "speed_columns_read",
           "live_triples", "lanes_capped", "input", "admm_lane_ticks",
           "admm_lane_ticks_plain", "live_agent_lane_ticks",
-          "scanned_actor_lane_ticks", "bit_exact", "bound_fp32_ms", "parent_ms",
+          "scanned_actor_lane_ticks", "bit_exact", "bound_fp32_ms",
           "tile_lanes", "blocks", "smem_bytes")
 
 
@@ -169,10 +167,13 @@ def _qp_bound(solver, q, nbytes):
     rates of the units that do its work at the required precision: the
     products' flops x 3 passes at the dense TF32 rate plus the elementwise
     flops at the FP32 rate, or the bytes; the bound with every flop at the
-    FP32 rate)."""
+    FP32 rate). The products are counted as the function needs them: A^T v
+    and A x over A's nonzero entries, Kinv rhs dense."""
+    import numpy as np
+
     B, n, m = q.shape[0], solver.n, solver.m
     P, it = solver.rho.shape[0], solver.iters
-    prod = 2.0 * B * P * it * (2 * m * n + n * n)
+    prod = 2.0 * B * P * it * (2 * np.count_nonzero(solver.At) + n * n)
     elem = B * P * it * (10 * m + 3 * n)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_tc = (prod * QP_PASSES / H100_TF32_FLOPS + elem / H100_FP32_FLOPS) * 1e3
@@ -186,53 +187,6 @@ def _qp_layout(solver, q):
     return dict(tile_lanes=t_qp.KERNEL_LANES,
                 blocks=-(-q.shape[0] // t_qp.KERNEL_LANES),
                 smem_bytes=t_qp.kernel_layout(solver.n, solver.m)["smem_bytes"])
-
-
-# the parent commit's QP kernel, for a before / after in one call
-# (``--qp-baseline SOURCE``): the launcher qp_admm_warm of a source with the
-# unpadded-constant interface (A, Kinv, rho, D, E, q, l, u, x0, z0, y0, x,
-# x_s, z, y, B, n, m, phases, iters, c, sigma, alpha, stream)
-_BASELINE = {}
-
-
-def _build_baseline(src: str) -> None:
-    import ctypes
-
-    from emplanner_carla_tpu_torch import cuda as kbuild
-
-    out = kbuild.BUILD_DIR / "libqp_admm_baseline.so"
-    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([kbuild._nvcc(), *kbuild._BASE_FLAGS, "-o", str(out), src],
-                   check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(out)).qp_admm_warm
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
-    _BASELINE["fn"] = fn
-
-
-def _baseline_ms(solver, q, l, u, state, reps=20):
-    """Device ms of the baseline QP kernel on these inputs, or None."""
-    import torch
-
-    from emplanner_carla_tpu_torch import cuda as kbuild
-
-    fn = _BASELINE.get("fn")
-    if fn is None:
-        return None
-    k = solver.consts(q.device)
-    B = q.shape[0]
-    outs = [torch.empty_like(q), torch.empty_like(q), torch.empty_like(l),
-            torch.empty_like(l)]
-    P = kbuild.ptr
-
-    def launch():
-        err = fn(P(k["At"]), P(k["Kinv"]), P(k["rho"]), P(k["D"]), P(k["E"]), P(q), P(l),
-                 P(u), *[P(a) for a in state], *[P(a) for a in outs], B, solver.n,
-                 solver.m, int(solver.rho.shape[0]), solver.iters, float(solver.c),
-                 solver.sigma, solver.alpha, kbuild.stream_of(q))
-        kbuild.check(err, "qp_admm baseline")
-    return _device_ms(launch, reps, _time_ms(launch, reps))
 
 
 def _nbytes(*ts) -> int:
@@ -359,7 +313,7 @@ def _check_qp(captured, site, replaces, eq_mask=None):
         replaces=replaces, max_abs_err=err, ms=ms, call_ms=call_ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
         y_max_abs_err=y_err, bound_fp32_ms=bound_fp32,
-        parent_ms=_baseline_ms(solver, q, l, u, state), **_qp_layout(solver, q))
+        **_qp_layout(solver, q))
 
 
 def _check_path_obs(captured):
@@ -641,7 +595,7 @@ def _check_cold_qp(captured, site, atol):
         replaces="emplanner_carla_tpu/ops/qp_pallas.py:279", max_abs_err=err, ms=ms,
         call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=None, bound_fp32_ms=bound_fp32,
-        parent_ms=_baseline_ms(solver, q, l, u, zero), **_qp_layout(solver, q))
+        **_qp_layout(solver, q))
 
 
 def _speed_dp_live(seg, cfg):
@@ -831,9 +785,6 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--summary", help="also write the end-to-end medians here (JSON)")
-    ap.add_argument("--qp-baseline", metavar="SOURCE",
-                    help="also time this QP kernel source (the parent's interface) "
-                         "at the four QP sites, beside the kernel")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -860,8 +811,6 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln
                 or "spill" in ln or "entry function" in ln]
         print(f"ptxas {name}: " + " | ".join(regs), flush=True)
-    if opts.qp_baseline:
-        _build_baseline(opts.qp_baseline)
 
     cfg = EMConfig()
     assert cfg.loop.n_plans == 20 and cfg.loop.plan_every == 100

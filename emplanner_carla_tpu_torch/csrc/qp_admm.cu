@@ -15,16 +15,17 @@
 //   out: x = D*x_s, and the scaled state (x_s, z, y).
 //
 // What bounds it on the H100: the products. Per lane and iteration they are
-// 2*m*n + n*n multiply-adds done densely (m = 179, n = 100 at the path
-// site), every iteration depends on the previous one, and the batch is the
-// only parallelism. The matrix operand (A, A^T, the phase's Kinv) is one
-// constant shared by every lane, so across a tile of lanes each product is a
-// small GEMM: lanes x constant. The operations bound is the dense products'
-// flops x 3 passes at the dense TF32 rate (495 TFLOP/s) plus the elementwise
-// flops at the FP32 rate (67 TFLOP/s). What limits this kernel is the rate
-// at which it dispatches instructions: five mma.sync TF32 (below wgmma's
-// rate) and the splits and sums around them per (k-step, tile, 16-lane
-// half).
+// 2*nnz(A) + n*n multiply-adds (nnz(A) = 547, n = 100 at the path site; A is
+// sparse, Kinv dense), every iteration depends on the previous one, and the
+// batch is the only parallelism. The matrix operand (A, A^T, the phase's
+// Kinv) is one constant shared by every lane, so across a tile of lanes each
+// product is a small GEMM: lanes x constant. The operations bound is those
+// products' flops x 3 passes at the dense TF32 rate (495 TFLOP/s) plus the
+// elementwise flops at the FP32 rate (67 TFLOP/s). What limits this kernel
+// is the rate at which it dispatches instructions: five mma.sync TF32 (below
+// wgmma's rate) and the splits and sums around them per (k-step, tile,
+// 16-lane half), over A's nonzero 8 x 8 blocks (below) where nnz(A) needs
+// far fewer multiply-adds.
 //
 // Precision: the products run on the tensor cores from TF32 pieces with
 // FP32 accumulation. The lane operand x is split in registers into hi = x
@@ -44,7 +45,9 @@
 // bias, k-step after k-step, moved the ladder several times further from the
 // plain version than float32's own round-off (see k_step). No single-pass
 // TF32 product is on the path. The TPU kernel's bf16x3 split
-// (qp_pallas.py:136 dot3, ~2^-17 an operand) is not used.
+// (qp_pallas.py:136 dot3, ~2^-17 an operand) is not used. A NaN in a lane
+// operand is stored as the quiet NaN (see quiet()), so a NaN lane stays NaN
+// as in the plain version.
 //
 // Tile and waves: one block of 8 warps (256 threads) per tile of 32 lanes.
 // Batch 4096 is 128 blocks on 132 SMs: one wave, one block an SM (the
@@ -124,9 +127,18 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v > hi ? hi : v;
 }
 
+// NaN as the quiet NaN 0x7fc00000, which tf32() keeps a NaN: the card's own
+// NaN, 0x7fffffff, would carry into the sign bit there and come out -0, and
+// a NaN lane would then leave the products finite. Every lane operand passes
+// through store_tile, which applies this.
+__device__ __forceinline__ float quiet(float v) {
+  return v != v ? __uint_as_float(0x7fc00000u) : v;
+}
+
 // x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
 // from zero, the low 13 mantissa bits zeroed), by two integer operations:
-// cvt runs at a quarter of their rate
+// cvt runs at a quarter of their rate. Exact for finite x, infinities and
+// the quiet NaN; other NaNs may lose their NaN-ness (see quiet())
 __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
@@ -329,7 +341,7 @@ __device__ __forceinline__ void store_tile(float* S, int pv, int tile, int g, in
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<float2*>(S + (16 * mt + g + 8 * h) * pv + 8 * tile + 2 * tig) =
-          make_float2(v[mt][2 * h], v[mt][2 * h + 1]);
+          make_float2(quiet(v[mt][2 * h]), quiet(v[mt][2 * h + 1]));
 }
 
 __global__ void __launch_bounds__(THREADS, 1)

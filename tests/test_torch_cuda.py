@@ -24,8 +24,8 @@ from emplanner_carla_tpu_torch.ops import frenet
 from emplanner_carla_tpu_torch.types import STSegments, tree_to
 from emplanner_carla_tpu_torch.config import mpc_feedforward_variant
 from torch_port_helpers import (  # noqa: F401
-    assert_metrics_match, assert_qp_close, assert_tick_bar, assert_traffic_bar, cuda_device,
-    np_of, t32,
+    assert_metrics_match, assert_qp_close, assert_tick_bar, assert_traffic_bar,
+    assert_within_roundoff, cuda_device, np_of, t32, warm_ladder_f64,
 )
 
 CFG = EMConfig(loop=dataclasses.replace(EMConfig().loop, n_plans=2, plan_every=20))
@@ -101,6 +101,27 @@ def test_k1_warm_chain_on_card(cuda_device):
         torch.cuda.synchronize()
         assert_qp_close(np_of(x_k), [np_of(a) for a in st_k],
                         np_of(x_p), [np_of(a) for a in st_p])
+
+
+@pytest.mark.cuda
+def test_k1_nan_lane_on_card(cuda_device):
+    """A NaN in one lane's q: that lane's x comes out all NaN from the kernel,
+    as from the plain version, and the other lanes are as without it."""
+    rng = np.random.default_rng(11)
+    B = 100
+    solver = path_qp._solver_for(25, 4.0, CFG.path)[0]
+    q, l, u = _path_qp_inputs(solver, B, rng, cuda_device)
+    zero = t_qp.warm_zero_state(solver.n, solver.m, B, cuda_device)
+    q_nan = q.clone()
+    q_nan[3, 5] = float("nan")
+    x_k = t_qp.warm_admm_kernel(solver, q, l, u, zero)[0]
+    x_kn = t_qp.warm_admm_kernel(solver, q_nan, l, u, zero)[0]
+    x_pn = t_qp.warm_ladder_torch(solver, q_nan, l, u, zero)[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(x_pn[3]).all())
+    assert bool(torch.isnan(x_kn[3]).all())
+    others = torch.arange(B, device=cuda_device) != 3
+    assert torch.equal(x_kn[others], x_k[others])
 
 
 @pytest.mark.cuda
@@ -253,9 +274,10 @@ def test_k4_kernel_equals_plain_on_card(cuda_device, K):
 @pytest.mark.cuda
 def test_k1_speed_site_kernel_matches_plain_on_card(cuda_device):
     """K1 at n 51, m 99 (the speed QP) on bounds from the convex space of
-    random segments, at the speed site's bar (x, x_s, z at atol 1e-3, as
-    ``chip_smoke.py`` holds it); the equality rows' dual is held by the next
-    solve."""
+    random segments: x, x_s and z at the speed site's bar (atol 1e-3, as
+    ``chip_smoke.py`` holds it) and no farther from the exact (float64)
+    ladder than twice the plain float32 ladder's own round-off, on the card
+    and on the CPU; the equality rows' dual is held by the next solve."""
     B = 100
     sp = CFG.speed
     seg, v0 = _random_segments(B, 2, cuda_device, seed=4)
@@ -275,11 +297,16 @@ def test_k1_speed_site_kernel_matches_plain_on_card(cuda_device):
     xk, stk = t_qp.warm_admm_kernel(solver, q, l, u, state)
     torch.cuda.synchronize()
     eq = speed_planner._speed_qp_constants(sp)[2]
-    # the speed site's K1 bar, atol 1e-3: at 1e-4 this input sits at the
-    # float32 noise floor, where the plain ladder on the CPU misses the plain
-    # ladder on the card (operation order alone)
     assert_qp_close(np_of(xk), [np_of(a) for a in stk], np_of(x_p),
                     [np_of(a) for a in st_p], atol=1e-3, y_rows=~eq)
+    # at atol 1e-4 this input sits at float32's round-off, which the rho
+    # ladder amplifies: the plain ladder on the card is itself more than 1e-4
+    # from the exact result, and the plain ladder on the CPU more than 1e-4
+    # from the card's; the kernel is held to that round-off instead
+    cpu = t_qp.warm_ladder_torch(solver, q.cpu(), l.cpu(), u.cpu(),
+                                 tuple(a.cpu() for a in state))
+    assert_within_roundoff((xk, stk), [(x_p, st_p), cpu],
+                           warm_ladder_f64(solver, q, l, u, state))
     xk2, stk2 = t_qp.warm_admm_kernel(solver, q, l, u, stk)
     xp2, stp2 = t_qp.warm_ladder_torch(solver, q, l, u, st_p)
     torch.cuda.synchronize()

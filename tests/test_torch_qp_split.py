@@ -9,8 +9,9 @@ held here against the plain ladder ``ops.qp.warm_ladder_torch`` at the K1
 bars of each site: x, x_s and z at rtol 1e-4 / atol 1e-4 at the path site and
 atol 1e-3 at the speed site, y within 1 % of its magnitude (at the speed site
 on the inequality rows, the equality rows by the next solve within 5e-3);
-cold, x at the site's bar. Also: the split's bits, the host layout of the
-kernel's constants and the wrapper's limit checks."""
+cold, x at the site's bar; and no farther from the exact (float64) ladder
+than twice the plain ladder's own round-off. Also: the split's bits, the
+host layout of the kernel's constants and the wrapper's limit checks."""
 
 import numpy as np
 import pytest
@@ -21,7 +22,8 @@ from emplanner_carla_tpu_torch.ops import qp as t_qp
 from emplanner_carla_tpu_torch.planner import path_qp, speed_planner
 from emplanner_carla_tpu_torch.types import STSegments
 from torch_port_helpers import (
-    assert_qp_close, np_of, split2, split3, t32, tf32_round, warm_ladder_split,
+    assert_qp_close, assert_within_roundoff, np_of, split2, split3, t32, tf32_round,
+    warm_ladder_f64, warm_ladder_split,
 )
 
 CFG = EMConfig()
@@ -83,9 +85,10 @@ def test_tf32_split_bits():
 @pytest.mark.parametrize("site,warm", [("path", True), ("path", False),
                                        ("speed", True), ("speed", False)])
 def test_split_ladder_holds_k1_bar(site, warm):
-    """The kernel's split arithmetic against the plain float32 ladder: the
-    path site warm (3 x 15 iterations) and cold (3 x 80), the speed site warm
-    (3 x 40) and cold (3 x 80), at B 16."""
+    """The kernel's split arithmetic against the plain float32 ladder, and
+    against the exact (float64) ladder within twice the plain ladder's
+    round-off: the path site warm (3 x 15 iterations) and cold (3 x 80), the
+    speed site warm (3 x 40) and cold (3 x 80), at B 16."""
     rng = np.random.default_rng(5)
     if site == "path":
         solver = path_qp._solver_for(N_ST, 4.0, CFG.path, warm)[0]
@@ -104,6 +107,8 @@ def test_split_ladder_holds_k1_bar(site, warm):
         state = t_qp.warm_zero_state(solver.n, solver.m, B)
     x_s, st_s = warm_ladder_split(solver, q, l, u, state)
     x_p, st_p = t_qp.warm_ladder_torch(solver, q, l, u, state)
+    assert_within_roundoff((x_s, st_s), [(x_p, st_p)],
+                           warm_ladder_f64(solver, q, l, u, state))
     if not warm:
         np.testing.assert_allclose(np_of(x_s), np_of(x_p), rtol=1e-4, atol=atol)
         return

@@ -124,6 +124,50 @@ def assert_qp_close(x_a, st_a, x_b, st_b, atol=1e-4, y_rows=None):
                                err_msg="y")
 
 
+def warm_ladder_f64(solver, q, l, u, state):
+    """The warm ladder of ``ops.qp.warm_ladder_torch`` in float64 on the CPU,
+    from the same float32 inputs, constants and scalars: the exact result
+    that every float32 implementation of the ladder approximates."""
+    k = solver.consts("cpu")
+    At, D, E = (k[name].double() for name in ("At", "D", "E"))
+    q, l, u = (a.detach().cpu().double() for a in (q, l, u))
+    x, z, y = (a.detach().cpu().double() for a in state)
+    sigma, alpha = float(np.float32(solver.sigma)), float(np.float32(solver.alpha))
+    qs = float(solver.c) * (D * q)
+    ls, us = E * l, E * u
+    z = torch.clamp(z, ls, us)
+    for ph in range(solver.rho.shape[0]):
+        rho = k["rho"][ph].double()
+        KinvT = k["Kinv"][ph].double().T
+        for _ in range(solver.iters):
+            x = (sigma * x - qs + (rho * z - y) @ At) @ KinvT
+            Ax_rel = alpha * (x @ At.T) + (1.0 - alpha) * z
+            z_new = torch.clamp(Ax_rel + y / rho, ls, us)
+            y = y + rho * (Ax_rel - z_new)
+            z = z_new
+    return D * x, (x, z, y)
+
+
+def assert_within_roundoff(out, plains, exact, factor=2.0):
+    """x, x_s and z of ``out`` ((x, (x_s, z, y)), e.g. the QP kernel's) no
+    farther from ``exact`` (:func:`warm_ladder_f64`) in max abs than
+    ``factor`` times the farthest of ``plains``: float32 implementations of
+    the same ladder (the plain version on the card and on the CPU), whose
+    distance from the exact result is float32's own round-off on this input,
+    as the rho ladder amplifies it."""
+    def parts(o):
+        return [np.asarray(np_of(a), np.float64) for a in (o[0], o[1][0], o[1][1])]
+
+    ref = parts(exact)
+    floor = np.max([[np.abs(a - r).max() for a, r in zip(parts(p), ref)]
+                    for p in plains], axis=0)
+    for name, a, r, f in zip(("x", "x_s", "z"), parts(out), ref, floor):
+        err = np.abs(a - r).max()
+        assert err <= factor * f, (
+            f"{name}: {err:.3e} from the float64 ladder, float32 round-off "
+            f"{f:.3e} (x {factor})")
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (and the QP
     kernel does on the int32 view): to nearest at mantissa bit 13, ties away
