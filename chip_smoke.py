@@ -37,6 +37,11 @@ Phases (any failure exits non-zero and prints no result line):
    - the cold QP (K1c) at the speed site, on bench config 1's two-segment
      set tiled to the batch, and at the path site, on bench config 2's
      open-loop plan: x within the site's K1 bar;
+   - for the tick kernel's instantiations also the device time on the
+     first 32 lanes alone (one block of the kernel: the time of one lane's
+     chain of ticks, ``chain_ms``) and a SHA-256 digest of the captured
+     inputs (``inputs_digest``), by which two runs show that they timed the
+     same tensors;
    - for the QP kernel at its four sites also its tile, blocks a launch and
      shared memory a block, and two bounds, with the products counted over
      A's nonzero entries (A is sparse, Kinv dense): its operations at the
@@ -78,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -98,7 +104,9 @@ _EXTRA = ("y_max_abs_err", "candidates_in_window", "speed_columns_read",
           "live_triples", "lanes_capped", "input", "admm_lane_ticks",
           "admm_lane_ticks_plain", "live_agent_lane_ticks",
           "scanned_actor_lane_ticks", "bit_exact", "bound_fp32_ms",
-          "tile_lanes", "blocks", "smem_bytes")
+          "tile_lanes", "blocks", "smem_bytes", "chain_ms", "inputs_digest")
+# lanes of the tick kernel's single-chain timing: one block of the kernel
+CHAIN_LANES = 32
 
 
 def _card_line() -> str:
@@ -154,6 +162,59 @@ def _device_ms(fn, reps: int, call_ms: float) -> float:
         spin_ms *= 4.0
     raise AssertionError(f"the host took longer than a {spin_ms / 4.0:.0f} ms "
                          f"spin to queue {reps} calls")
+
+
+def _first_lanes(x, B: int, n: int):
+    """The first n lanes of every batch-major tensor in x (nested tuples,
+    NamedTuples, dicts); everything else as it is."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x[:n].contiguous() if x.dim() and x.shape[0] == B else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_first_lanes(v, B, n) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(_first_lanes(v, B, n) for v in x)
+    if isinstance(x, dict):
+        return {k: _first_lanes(v, B, n) for k, v in x.items()}
+    return x
+
+
+def _digest(*trees) -> str:
+    """SHA-256 (first 16 hex digits) of every tensor's shape and bytes in
+    the nested tuples, NamedTuples and dicts given, and of their strings and
+    numbers; other objects (configs) are skipped."""
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            h.update(f"{x.dtype}{tuple(x.shape)}".encode())
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif x is None or isinstance(x, (str, int, float, bool)):
+            h.update(repr(x).encode())
+
+    for t in trees:
+        walk(t)
+    return h.hexdigest()[:16]
+
+
+def _chain_ms(run, args, kw) -> float:
+    """Device ms of ``run`` on the first CHAIN_LANES lanes of its arguments
+    alone: one block of the tick kernel, the time of one lane's chain of
+    ticks with nothing else on the card."""
+    B = args[0].x.shape[0]
+    a, k = _first_lanes(args, B, CHAIN_LANES), _first_lanes(kw, B, CHAIN_LANES)
+    fn = lambda: run(*a, **k)  # noqa: E731
+    return _device_ms(fn, 20, _time_ms(fn, 20))
 
 
 def _bound_ms(n_bytes: float, flops: float):
@@ -396,10 +457,10 @@ def _tick_work(cfg, args, kw, out_k, out_p):
     cc, pc = cfg.control, cfg.plant
     # per tick: two first-min matches (6 ops per path node), the obstacle
     # passes (ACC gate, advance, collision: ~25 ops per slot), the red-light
-    # gate (~20 ops per light), the PID window sum and ~200 scalar ops of
-    # controller, plant and metrics; ~40 more a plant step for each extra
-    # step and for the dynamic bicycle's tyre forces
-    per_tick = 2 * NP * 6 + K * 25 + L * 20 + NB + 200
+    # gate (~20 ops per light), the PID window sum where ki != 0 and ~200
+    # scalar ops of controller, plant and metrics; ~40 more a plant step for
+    # each extra step and for the dynamic bicycle's tyre forces
+    per_tick = 2 * NP * 6 + K * 25 + L * 20 + (NB if cc.ki != 0.0 else 0) + 200
     per_tick += 40 * (pc.substeps - 1) + (40 * pc.substeps if pc.kind == "dynamic" else 0)
     flops = float(B) * T * per_tick
     extra = {}
@@ -472,6 +533,7 @@ def _check_ticks(cfg, captured, name, replaces, tick_bar=False):
     k3 = lambda: t_cl.run_ticks_kernel(*args, **kw)  # noqa: E731
     call_ms = _time_ms(k3, 20)
     ms = _device_ms(k3, 20, call_ms)
+    chain = _chain_ms(t_cl.run_ticks_kernel, args, kw)
     plain_ms = _time_ms(lambda: t_cl._full_ticks_base(*args, **kw), 2)
     nbytes, flops, extra = _tick_work(cfg, args, kw, out_k, out_p)
     if kw.get("lights") is not None:
@@ -483,7 +545,8 @@ def _check_ticks(cfg, captured, name, replaces, tick_bar=False):
     return dict(
         name=name, route="cuda", source="emplanner_carla_tpu_torch/csrc/tick_lqr.cu",
         replaces=replaces, max_abs_err=err, ms=ms, call_ms=call_ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None, **extra)
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        chain_ms=chain, inputs_digest=_digest(args, kw), **extra)
 
 
 def _check_traffic(cfg, captured, name, replaces):
@@ -521,6 +584,7 @@ def _check_traffic(cfg, captured, name, replaces):
     k7 = lambda: t_cl.run_traffic_ticks_kernel(*args, **kw)  # noqa: E731
     call_ms = _time_ms(k7, 20)
     ms = _device_ms(k7, 20, call_ms)
+    chain = _chain_ms(t_cl.run_traffic_ticks_kernel, args, kw)
     plain_ms = _time_ms(lambda: t_cl._traffic_ticks_base(*args, **kw), 2)
     nbytes, flops, extra = _tick_work(cfg, args, kw, out_k, out_p)
     tr, obs = kw["traffic"], args[4]
@@ -550,7 +614,7 @@ def _check_traffic(cfg, captured, name, replaces):
         replaces=replaces, max_abs_err=err, ms=ms, call_ms=call_ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
         live_agent_lane_ticks=live, scanned_actor_lane_ticks=scanned, bit_exact=bit_exact,
-        **extra)
+        chain_ms=chain, inputs_digest=_digest(args, kw), **extra)
 
 
 def _displaced(captured):

@@ -29,13 +29,18 @@ class PIDState(NamedTuple):
 
 def pid_core(buffer, count, last, error, cfg: ControlConfig):
     """One PID tick on (B, n_buf) buffers and (B,) rows. Returns
-    (cmd, buffer', count', error)."""
+    (cmd, buffer', count', error). With ``ki == 0`` the window is not
+    summed, with ``kd == 0`` no derivative is taken: their terms are 0, the
+    tick kernel's choice (for finite errors the same command)."""
     buffer = torch.cat([buffer[:, 1:], error[:, None]], 1)
     count = torch.clamp(count + 1, max=cfg.pid_buffer)
 
     have_two = count >= 2
-    integral = torch.where(have_two, buffer.sum(dim=1) * cfg.pid_dt, 0.0)
-    deriv = torch.where(have_two, tdiv(error - last, cfg.pid_dt), 0.0)
+    zero = torch.zeros_like(error)
+    integral = torch.where(have_two, buffer.sum(dim=1) * cfg.pid_dt, 0.0) \
+        if cfg.ki != 0.0 else zero
+    deriv = torch.where(have_two, tdiv(error - last, cfg.pid_dt), 0.0) \
+        if cfg.kd != 0.0 else zero
 
     # integral separation (controller.py:667-671)
     separate = error.abs() > cfg.integral_sep_threshold

@@ -22,7 +22,7 @@
 // obstacle advance; collision check; lateral error at the new pose; 8 metric
 // channels written as (channel, B, ticks).
 //
-// NPC agents (traffic branch, sim/npc.py, see npc_advance): after the ego's
+// NPC agents (traffic branch, sim/npc.py, see agent_step): after the ego's
 // plant step every slot's lane offset slews toward its target; each live
 // agent slot then finds its own-lane and target-lane leads among the other
 // slots and the ego at its new pose, the red stop line (with lights), three
@@ -39,40 +39,59 @@
 // TPU kernel's -Hinv2 f); where some |u*_i| > 1 (or is NaN), f = 2 (G1 e +
 // kappa g2), the lerped Minv and `mpc_iters` warm box-ADMM steps from the
 // (z, u_d) carried across the cycle's ticks (zeros at cycle start); else
-// the state becomes (u*, 0). The ADMM branch is taken per lane: a warp only
-// pays for it in time.
+// the state becomes (u*, 0). The ADMM branch is taken per lane.
 //
-// What bounds it on the H100: latency of the serial tick chain. The work is
-// small (about 3.8 KB in and out per lane, the speed profile counted only
-// where the ticks look it up; ~9e4 flops per lane and cycle for LQR, plus
-// ~3.8e3 per MPC tick that runs the ADMM), but the ticks of a lane are
-// strictly sequential and there is one lane per scenario: 4096 lanes are 128
-// warps for 132 SMs, so each SM runs about one warp and cannot hide the
-// latency of its dependent arithmetic and loads. With agents, each live
-// agent adds ~6e2 operations a tick (the 32-row match, ~18 transcendentals,
-// IDM and the bicycle) and ~60 for each actor its five corridor scans visit
-// (the valid other slots and the ego) to the same serial chain.
+// What bounds it on the H100: the chain of one tick. The work is small
+// (about 3.8 KB in and out per lane, ~9e4 flops per lane and cycle for LQR,
+// plus ~3.8e3 per MPC tick that runs the ADMM, ~6e2 a live agent and tick),
+// but the ticks of a lane are strictly sequential, so a launch takes at least
+// 100 times the latency of one tick's dependent chain: the predicted-pose
+// match, the controller, the PID, the plant step and, with agents, each live
+// agent's step (its transcendentals, scans and match). One block of 32 lanes
+// alone takes about as long as the whole batch: the launch is the chain of
+// its slowest lane. Lanes that drive straight along an axis carry subnormal
+// heading and steer terms, and a division with a subnormal numerator takes
+// the hardware's slow path, several times the fast one; those lanes set
+// the launch's time.
 //
-// What the design does about it: one thread per lane keeps the whole ego,
-// PID and obstacle state in registers (the PID buffer in a per-thread ring
-// in local memory) across all ticks, so nothing goes back to device memory
-// until the cycle ends; 32-thread blocks spread the warps over every SM; the
-// LQR gain table sits in static shared memory, the MPC tables (64 x 264
-// floats at nu = 12, 67.6 KB) and each lane's MPC vectors and lerped Minv
-// (lane-minor, conflict-free) in dynamic shared memory; the lane's target
-// path and speed profile are re-read from the L1-resident rows. The LQR +
-// kinematic entry point `tick_lqr` keeps one plant step and the sin heading
-// error as compile-time constants, the code of K3; `tick_variant` takes
-// substeps and the raw heading error as runtime parameters; `tick_traffic`
-// runs every controller and plant with the agents (K7), whose per-slot state
-// (the tick-start copy, the new states, lane offsets and targets, match
-// indices: 24.6 KB a block) sits lane-minor in static shared memory, since a
-// slot's loop reads the other slots by a run-time index; the lane's global
-// path is read in place (32 match rows and two look-up rows a live agent and
-// tick, L1/L2-resident). The TPU kernel's 96-row block-shared path window,
-// its containment gate, its skip of blocks without a live agent and its
-// one-hot row selection are Mosaic scheduling choices with no counterpart
-// here.
+// What the design does about it: a group of G = 8 adjacent threads of one
+// warp serves one lane (a block holds 32 lanes, 256 threads; 4096 lanes are
+// 128 blocks of eight warps). Every thread of the group runs the lane's
+// scalar chain (ACC, controller, PID, plant) on the same values, so the chain
+// needs no broadcast; the loops on it are split across the group and
+// combined with __shfl_xor_sync inside the group: the predicted-pose match
+// (the lanes' target paths staged in shared memory), the ACC scan and the
+// collision check over the obstacle slots (slot k lives in the registers of
+// thread k % G), each live agent's five corridor scans (over the owners'
+// slots; the owner hands the agent's tick-start state to the group) and its
+// 32-row match, and under MPC the rows of u*, of the table lerps and of
+// Minv v (each row's dot product stays serial in j, in the plain version's
+// order; the group meets at __syncwarp around the shared v). An argmin
+// combines (distance, index) pairs, the smaller distance winning and an
+// exact tie going to the smaller index, which keeps the first minimum of the
+// serial loop; fminf, any and all combine in any order; no float sum changes
+// its order. What the next tick does not read leaves the chain: thread g
+// keeps tick i's pose when i % G == g, and every G ticks the group computes
+// those ticks' lateral errors (one full match each, in parallel) and speeds
+// and stores the 8 metric channels, thread g its tick. With the default ki =
+// kd = 0 the PID sums no window and takes no derivative quotient (the plain
+// version makes the same choice); its error ring lives in shared memory,
+// written once a tick, and a separation clears it by forgetting the live
+// entries. hypot_j returns max where min/max cannot change it, which keeps
+// the kinematic vy = 0 and the straight lanes' subnormal terms out of its
+// division; each sine and cosine of one angle come from one sincosf (bit for
+// bit the pair sinf, cosf: tests/test_torch_cuda.py). Shared arrays that a
+// group reads at consecutive indices start G banks apart from lane to lane.
+// The LQR gain table sits in static shared memory, the MPC tables (64 x 264
+// floats at nu = 12, 67.6 KB) and each lane's lerped Minv and v in dynamic
+// shared memory; the agents' global path is read in place (32 match rows and
+// two look-up rows a live agent and tick, L1/L2-resident). The LQR +
+// kinematic entry points with one plant step (`tick_lqr`, and `tick_traffic`
+// when that is its configuration) keep the step count and the sin heading
+// error as compile-time constants. The TPU kernel's 96-row block-shared path
+// window, its containment gate, its skip of blocks without a live agent and
+// its one-hot row selection are Mosaic scheduling choices with no
+// counterpart here.
 // The file builds with -fmad=false and uses jnp.hypot's formula, and every
 // sum runs in the plain version's order, so the arithmetic matches the plain
 // PyTorch loop term for term.
@@ -86,7 +105,12 @@ constexpr int KMAX = 16;     // obstacle slots
 constexpr int NBMAX = 64;    // PID buffer depth
 constexpr int TABMAX = 256;  // LQR gain-table rows
 constexpr int NUMAX = 16;    // MPC decision variables
-constexpr int THREADS = 32;
+constexpr int G = 8;         // threads a lane
+constexpr int LANES = 32;    // lanes a block
+constexpr int THREADS = LANES * G;
+constexpr int QS = KMAX / G;   // obstacle slots a thread
+constexpr int QU = NUMAX / G;  // MPC rows a thread
+constexpr int AGENT_ROWS = 32;
 
 enum {
   F_DT, F_STANDOFF, F_HEADWAY, F_MIN_VX, F_TS, F_TAB_V0, F_TAB_DV, F_A, F_B, F_AB,
@@ -98,11 +122,6 @@ enum {
   F_P_MAXSPD, F_P_SAFET, F_P_MIND, F_P_ACC, F_P_DEC, F_LANE_W, F_LANE_STEP, F_TWO_L,
   F_COUNT
 };
-
-// per-slot NPC state of the traffic branch, lane-minor in shared memory
-// (element k of lane t at [k * THREADS + t]): the slots at the start of the
-// tick (X .. SP), their new state (NX .. NVY) and the lane offsets / targets
-enum { N_X, N_Y, N_VX, N_VY, N_SP, N_NX, N_NY, N_NVX, N_NVY, N_OFF, N_TGT, N_COUNT };
 
 struct TickArgs {
   const float* ego;       // (B, 9) x y phi vx vy omega ax ay steer
@@ -154,13 +173,18 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
 // jnp.maximum(v, lo) / torch.clamp(v, min=lo): a NaN v passes through
 __device__ __forceinline__ float max_nan(float v, float lo) { return v < lo ? lo : v; }
 
-// jnp.hypot: max * sqrt(1 + (min/max)^2)
+// jnp.hypot: max * sqrt(1 + (min/max)^2). Where min <= max * 2^-13 the
+// square of min/max is below half an ulp of 1, so the result is max itself:
+// returning it skips a division that for a zero or subnormal min (the
+// kinematic vy = 0, a lane that drives straight along an axis) would take
+// the hardware's slow path, several times the fast one.
 __device__ __forceinline__ float hypot_j(float a, float b) {
   a = fabsf(a);
   b = fabsf(b);
   if (isinf(a) || isinf(b)) return INFINITY;
   float hi = fmaxf(a, b), lo = fminf(a, b);
   if (hi == 0.f) return hi;
+  if (lo <= hi * 0x1p-13f) return hi;
   float r = lo / hi;
   return hi * sqrtf(1.0f + r * r);
 }
@@ -172,82 +196,160 @@ __device__ __forceinline__ float floored_mod(float a, float b) {
   return r;
 }
 
-// first-minimum nearest node of (px, py) on the lane's target path
-__device__ __forceinline__ int match(const float* tx, const float* ty, int NP,
-                                     float px, float py) {
-  float best = INFINITY;
-  int bi = 0;
-  for (int j = 0; j < NP; ++j) {
-    float dx = tx[j] - px, dy = ty[j] - py;
-    float d = dx * dx + dy * dy;
-    if (d < best) { best = d; bi = j; }
-  }
-  return bi;
+// ---- the lane group: G adjacent threads of a warp, mask `gm` ----
+
+__device__ __forceinline__ float group_fmin(float v, unsigned gm) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(gm, v, o, G));
+  return v;
 }
 
-// One MPC tick of lane `tid` (lateral.mpc_steer_table): rows r0 = table[i0],
-// r1 = table[i0 + 1], weight wf; the lane's vectors live lane-minor in shared
-// memory (element k of lane t at [k * THREADS + t]). Returns the unclipped
-// steer; updates (z, u_d) and counts an ADMM tick.
-__device__ float mpc_tick(const float* r0, const float* r1, float wf, float e0,
-                          float e1, float e2, float e3, float km, int nu, int iters,
-                          float* sM, float* sZ, float* sUd, float* sF, float* sV,
-                          float* sU, int tid, int& admm_ticks) {
+__device__ __forceinline__ bool group_any(bool p, unsigned gm) {
+  return (__ballot_sync(gm, p) & gm) != 0u;
+}
+
+// (d, i) -> the group's smallest d, the smallest i among equal d: with each
+// thread's own first minimum, the first minimum of the whole loop
+__device__ __forceinline__ void group_argmin(float& d, int& i, unsigned gm) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float od = __shfl_xor_sync(gm, d, o, G);
+    const int oi = __shfl_xor_sync(gm, i, o, G);
+    if (od < d || (od == d && oi < i)) {
+      d = od;
+      i = oi;
+    }
+  }
+}
+
+// group_argmin carrying the winner's value v
+__device__ __forceinline__ void group_argmin_v(float& d, int& i, float& v, unsigned gm) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float od = __shfl_xor_sync(gm, d, o, G);
+    const int oi = __shfl_xor_sync(gm, i, o, G);
+    const float ov = __shfl_xor_sync(gm, v, o, G);
+    if (od < d || (od == d && oi < i)) {
+      d = od;
+      i = oi;
+      v = ov;
+    }
+  }
+}
+
+// first-minimum node of (px, py) among nodes j0, j0 + step, ... < NP of the
+// lane's target path (node j at sx[j], sy[j])
+__device__ __forceinline__ void match_part(const float* sx, const float* sy, int NP, int j0,
+                                           int step, float px, float py, float& best,
+                                           int& bi) {
+  best = INFINITY;
+  bi = 0;
+  for (int j = j0; j < NP; j += step) {
+    const float dx = sx[j] - px, dy = sy[j] - py;
+    const float d = dx * dx + dy * dy;
+    if (d < best) {
+      best = d;
+      bi = j;
+    }
+  }
+}
+
+// element q of a thread's per-slot registers, q known only at run time
+template <int N, class T>
+__device__ __forceinline__ T pick(const T (&a)[N], int q) {
+  T v = a[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = q == j ? a[j] : v;
+  return v;
+}
+
+// One MPC tick of a lane (lateral.mpc_steer_table): rows r0 = table[i0],
+// r1 = table[i0 + 1], weight wf. Thread g of the group owns rows g, g + G, ..
+// of u*, f, Minv and (z, u_d) (z, ud: its rows' carried state); sM points at
+// the lane's lerped Minv, column-major (Minv[i][j] at sM[j * nu + i], so the
+// owners of consecutive rows read consecutive banks), sV at its v. Returns
+// the unclipped steer on every thread; counts an ADMM tick.
+__device__ __forceinline__ float mpc_tick(const float* r0, const float* r1, float wf,
+                                          float e0, float e1, float e2, float e3, float km,
+                                          int nu, int iters, float (&z)[QU], float (&ud)[QU],
+                                          float* sM, float* sV, int g, unsigned gm,
+                                          int& admm_ticks) {
   const int oG1 = nu * nu, og2 = oG1 + 4 * nu, oW1 = og2 + nu, ow2 = oW1 + 4 * nu;
   const float om = 1.f - wf;
-  bool interior = true;
-  for (int i = 0; i < nu; ++i) {
-    const float* p0 = r0 + oW1 + 4 * i;
-    const float* p1 = r1 + oW1 + 4 * i;
-    float u = (p0[0] * om + p1[0] * wf) * e0;
-    u = u + (p0[1] * om + p1[1] * wf) * e1;
-    u = u + (p0[2] * om + p1[2] * wf) * e2;
-    u = u + (p0[3] * om + p1[3] * wf) * e3;
-    u = u + km * (r0[ow2 + i] * om + r1[ow2 + i] * wf);
-    sU[i * THREADS + tid] = u;
-    interior = interior && fabsf(u) <= 1.f;
-  }
-  if (interior) {
-    for (int i = 0; i < nu; ++i) {
-      sZ[i * THREADS + tid] = sU[i * THREADS + tid];
-      sUd[i * THREADS + tid] = 0.f;
+  float u[QU];
+  bool out = false;
+#pragma unroll
+  for (int m = 0; m < QU; ++m) {
+    const int i = g + G * m;
+    u[m] = 0.f;
+    if (i < nu) {
+      const float* p0 = r0 + oW1 + 4 * i;
+      const float* p1 = r1 + oW1 + 4 * i;
+      float v = (p0[0] * om + p1[0] * wf) * e0;
+      v = v + (p0[1] * om + p1[1] * wf) * e1;
+      v = v + (p0[2] * om + p1[2] * wf) * e2;
+      v = v + (p0[3] * om + p1[3] * wf) * e3;
+      v = v + km * (r0[ow2 + i] * om + r1[ow2 + i] * wf);
+      u[m] = v;
+      out = out || !(fabsf(v) <= 1.f);
     }
-    return sU[tid];
+  }
+  if (!group_any(out, gm)) {
+#pragma unroll
+    for (int m = 0; m < QU; ++m) {
+      z[m] = u[m];
+      ud[m] = 0.f;
+    }
+    return __shfl_sync(gm, u[0], 0, G);
   }
   ++admm_ticks;
-  for (int i = 0; i < nu; ++i) {
-    const float* p0 = r0 + oG1 + 4 * i;
-    const float* p1 = r1 + oG1 + 4 * i;
-    float g = (p0[0] * om + p1[0] * wf) * e0;
-    g = g + (p0[1] * om + p1[1] * wf) * e1;
-    g = g + (p0[2] * om + p1[2] * wf) * e2;
-    g = g + (p0[3] * om + p1[3] * wf) * e3;
-    g = g + km * (r0[og2 + i] * om + r1[og2 + i] * wf);
-    sF[i * THREADS + tid] = 2.f * g;
+  float f[QU];
+#pragma unroll
+  for (int m = 0; m < QU; ++m) {
+    const int i = g + G * m;
+    f[m] = 0.f;
+    if (i < nu) {
+      const float* p0 = r0 + oG1 + 4 * i;
+      const float* p1 = r1 + oG1 + 4 * i;
+      float v = (p0[0] * om + p1[0] * wf) * e0;
+      v = v + (p0[1] * om + p1[1] * wf) * e1;
+      v = v + (p0[2] * om + p1[2] * wf) * e2;
+      v = v + (p0[3] * om + p1[3] * wf) * e3;
+      v = v + km * (r0[og2 + i] * om + r1[og2 + i] * wf);
+      f[m] = 2.f * v;
+      for (int j = 0; j < nu; ++j) {
+        const int k = i * nu + j;
+        sM[j * nu + i] = r0[k] * om + r1[k] * wf;
+      }
+    }
   }
-  for (int k = 0; k < nu * nu; ++k) sM[k * THREADS + tid] = r0[k] * om + r1[k] * wf;
   for (int it = 0; it < iters; ++it) {
     // v = rho (z - u_d) - f with rho = 1
-    for (int j = 0; j < nu; ++j) {
-      const int o = j * THREADS + tid;
-      sV[o] = (sZ[o] - sUd[o]) - sF[o];
+#pragma unroll
+    for (int m = 0; m < QU; ++m) {
+      const int i = g + G * m;
+      if (i < nu) sV[i] = (z[m] - ud[m]) - f[m];
     }
-    for (int i = 0; i < nu; ++i) {
-      const float* Mi = sM + i * nu * THREADS + tid;
-      float x = Mi[0] * sV[tid];
-      for (int j = 1; j < nu; ++j) x = x + Mi[j * THREADS] * sV[j * THREADS + tid];
-      const int o = i * THREADS + tid;
-      const float zn = clip(x + sUd[o], -1.f, 1.f);
-      sUd[o] = (sUd[o] + x) - zn;
-      sZ[o] = zn;
+    __syncwarp(gm);
+#pragma unroll
+    for (int m = 0; m < QU; ++m) {
+      const int i = g + G * m;
+      if (i < nu) {
+        float x = sM[i] * sV[0];
+        for (int j = 1; j < nu; ++j) x = x + sM[j * nu + i] * sV[j];
+        const float zn = clip(x + ud[m], -1.f, 1.f);
+        ud[m] = (ud[m] + x) - zn;
+        z[m] = zn;
+      }
     }
+    __syncwarp(gm);
   }
-  return sZ[tid];
+  return __shfl_sync(gm, z[0], 0, G);
 }
 
 // ---- NPC agents (traffic branch, sim/npc.py) ----
 
-// One corridor of slot k: the others' offsets in the NPC's heading frame
+// One corridor of an NPC: the others' offsets in the NPC's heading frame
 // (ck, sk) about its position shifted by `shift` along the normal (-sk, ck):
 // others - (npc + shift * n), the JAX form of npc.lead_info / corridor_free.
 struct Corridor {
@@ -261,66 +363,38 @@ struct Corridor {
   }
 };
 
-// npc.lead_info: the nearest actor ahead within |lateral| < 2 among the
-// other valid slots (as they stood at the start of the tick) and the ego;
-// the first minimum wins, so a slot beats the ego on an exact tie. Nothing
-// ahead: gap 1e4, speed 100.
-__device__ void npc_lead(const Corridor& c, int k, int K, unsigned vmask, const float* sX,
-                         const float* sY, const float* sSP, float ex, float ey, float espd,
-                         int tid, float& gap, float& v) {
-  gap = INFINITY;
-  v = 0.f;
-  for (int j = 0; j < K; ++j) {
-    if (j == k || !((vmask >> j) & 1u)) continue;
-    float dl, dlat;
-    c.frame(sX[j * THREADS + tid], sY[j * THREADS + tid], dl, dlat);
-    if (dl > 0.5f && fabsf(dlat) < 2.0f && dl < gap) {
-      gap = dl;
-      v = sSP[j * THREADS + tid];
-    }
-  }
+// npc.lead_info, one actor (index j, speed v) into a running first minimum:
+// ahead of 0.5 m within |lateral| < 2
+__device__ __forceinline__ void lead_visit(const Corridor& c, float ox, float oy, float v,
+                                           int j, float& gap, int& gi, float& gv) {
   float dl, dlat;
-  c.frame(ex, ey, dl, dlat);
+  c.frame(ox, oy, dl, dlat);
   if (dl > 0.5f && fabsf(dlat) < 2.0f && dl < gap) {
     gap = dl;
-    v = espd;
-  }
-  if (!(gap < INFINITY)) {
-    gap = 1e4f;
-    v = 100.f;
+    gi = j;
+    gv = v;
   }
 }
 
-// npc.corridor_free: no other valid slot nor the ego within [-8, 20) m
-// along and |lateral| < 1.8 m of the corridor
-__device__ bool npc_corridor_free(const Corridor& c, int k, int K, unsigned vmask,
-                                  const float* sX, const float* sY, float ex, float ey,
-                                  int tid) {
-  bool occ = false;
-  for (int j = 0; j < K; ++j) {
-    if (j == k || !((vmask >> j) & 1u)) continue;
-    float dl, dlat;
-    c.frame(sX[j * THREADS + tid], sY[j * THREADS + tid], dl, dlat);
-    occ = occ || (dl > -8.f && dl < 20.f && fabsf(dlat) < 1.8f);
-  }
+// npc.corridor_free, one actor: within [-8, 20) m along, |lateral| < 1.8 m
+__device__ __forceinline__ bool occupies(const Corridor& c, float ox, float oy) {
   float dl, dlat;
-  c.frame(ex, ey, dl, dlat);
-  occ = occ || (dl > -8.f && dl < 20.f && fabsf(dlat) < 1.8f);
-  return !occ;
+  c.frame(ox, oy, dl, dlat);
+  return dl > -8.f && dl < 20.f && fabsf(dlat) < 1.8f;
 }
 
-// traffic_light.stop_distance of an NPC (vx = its speed, vy = 0): the
-// nearest red stop line ahead in its corridor, +inf when none
+// traffic_light.stop_distance of an NPC (vx = its speed, vy = 0, heading
+// cosine ck and sine sk): the nearest red stop line ahead in its corridor,
+// +inf when none
 __device__ float npc_stop_distance(const float* F, const float* tl, int L, float t_abs,
-                                   float xk, float yk, float phik, float ck, float sk,
-                                   float spk) {
+                                   float xk, float yk, float ck, float sk, float spk) {
   const float vxw = spk * ck - 0.f * sk;
   const float vyw = 0.f * ck + spk * sk;
   const float spd = max_nan(hypot_j(vxw, vyw), 1e-3f);
   const bool slow = spd < 0.5f;
   const float den = slow ? 1.f : spd;
-  const float ux = slow ? cosf(phik) : vxw / den;
-  const float uy = slow ? sinf(phik) : vyw / den;
+  const float ux = slow ? ck : vxw / den;
+  const float uy = slow ? sk : vyw / den;
   float d = INFINITY;
   for (int l = 0; l < L; ++l) {
     const float per = tl[2 * L + l];
@@ -334,66 +408,104 @@ __device__ float npc_stop_distance(const float* F, const float* tl, int L, float
   return d;
 }
 
-// One NPC tick of every slot of lane `tid` (closed_loop._advance_npcs):
-// slew every lane offset; each live agent slot then reads the other slots
-// from the tick-start copy (sn[N_X .. N_SP]) and the ego at its new pose,
-// and writes its new state to sn[N_NX .. N_NVY] (a simultaneous update);
-// walker, static and invalid slots move at constant velocity. The agent:
-// own-lane and target-lane leads, the red stop line as a stationary lead,
-// three corridor checks, the lane decision, the 32-row forward first-minimum
-// match, the speed-scaled look-ahead row, pure pursuit, IDM and the
-// kinematic bicycle.
-__device__ void npc_advance(const float* F, int K, int NG, const float* gx, const float* gy,
-                            const float* gth, unsigned vmask, unsigned amask, float ex,
-                            float ey, float espd, const float* tl, int L, float t_abs,
-                            float* sn, int* sIdx, int tid) {
-  const int P = KMAX * THREADS;  // one per-slot array
-  float *sX = sn + N_X * P, *sY = sn + N_Y * P, *sVX = sn + N_VX * P, *sVY = sn + N_VY * P;
-  float *sSP = sn + N_SP * P, *sOff = sn + N_OFF * P, *sTgt = sn + N_TGT * P;
+// A thread's obstacle slots k = g + G * q, q < QS (x, y, vx, vy, validity)
+// and, with agents, their lane offsets, lane targets and match indices.
+struct Slots {
+  float x[QS], y[QS], vx[QS], vy[QS];
+  bool valid[QS];
+  float off[QS], tgt[QS];
+  int idx[QS];
+};
+
+// One NPC tick of a lane's slots (closed_loop._advance_npcs), by the whole
+// group: every slot's lane offset slews; the owner of each live agent slot
+// hands its tick-start state to the group, which runs the agent: its five
+// corridor scans over the owners' slots (as they stood at the start of the
+// tick) and the ego at its new pose (ex, ey, espd), its 32-row match split
+// over the rows, the rest on every thread; the owner keeps the new state.
+// Walker, static and invalid slots move at constant velocity.
+__device__ __forceinline__ void agent_step(const float* F, int K, int NG, const float* gx,
+                                           const float* gy, const float* gth, unsigned amask,
+                                           float ex, float ey, float espd, const float* tl,
+                                           int L, float t_abs, Slots& s, int g, unsigned gm) {
   const float dt = F[F_DT];
   const float step = F[F_LANE_STEP];
-  for (int k = 0; k < K; ++k) {
-    const int o = k * THREADS + tid;
-    sOff[o] = sOff[o] + clip(sTgt[o] - sOff[o], -step, step);
-  }
   const float lane_w = F[F_LANE_W];
-  for (int k = 0; k < K; ++k) {
-    const int o = k * THREADS + tid;
-    const float xk = sX[o], yk = sY[o], vxk = sVX[o], vyk = sVY[o];
-    if (!((amask >> k) & 1u)) {
-      sn[N_NX * P + o] = xk + vxk * dt;
-      sn[N_NY * P + o] = yk + vyk * dt;
-      sn[N_NVX * P + o] = vxk;
-      sn[N_NVY * P + o] = vyk;
-      continue;
-    }
-    const float spk = sSP[o];
+  float sp[QS], nx[QS], ny[QS], nvx[QS], nvy[QS];
+#pragma unroll
+  for (int q = 0; q < QS; ++q) {
+    sp[q] = hypot_j(s.vx[q], s.vy[q]);
+    s.off[q] = s.off[q] + clip(s.tgt[q] - s.off[q], -step, step);
+    nx[q] = s.x[q] + s.vx[q] * dt;
+    ny[q] = s.y[q] + s.vy[q] * dt;
+    nvx[q] = s.vx[q];
+    nvy[q] = s.vy[q];
+  }
+  for (unsigned am = amask; am != 0u; am &= am - 1u) {
+    const int k = __ffs((int)am) - 1;
+    const int owner = k % G, qk = k / G;
+    const float xk = __shfl_sync(gm, pick(s.x, qk), owner, G);
+    const float yk = __shfl_sync(gm, pick(s.y, qk), owner, G);
+    const float vxk = __shfl_sync(gm, pick(s.vx, qk), owner, G);
+    const float vyk = __shfl_sync(gm, pick(s.vy, qk), owner, G);
+    const float spk = __shfl_sync(gm, pick(sp, qk), owner, G);
+    const float tgt_k = __shfl_sync(gm, pick(s.tgt, qk), owner, G);
+    const float off = __shfl_sync(gm, pick(s.off, qk), owner, G);
+    const int idx_k = __shfl_sync(gm, pick(s.idx, qk), owner, G);
+
     const float phik = spk > 0.1f ? atan2f(vyk, vxk) : 0.f;
-    const float ck = cosf(phik), sk = sinf(phik);
+    float ck, sk;
+    sincosf(phik, &sk, &ck);
     // the lateral offset from the path at the carried index (clamped into
     // the path for memory safety; the carried index is always inside it)
-    const int idx_k = sIdx[o];
     const int ic = min(max(idx_k, 0), NG - 1);
-    const float th_i = gth[ic];
-    const float l_now = -(xk - gx[ic]) * sinf(th_i) + (yk - gy[ic]) * cosf(th_i);
-    const float tgt_k = sTgt[o];
+    float s_i, c_i;
+    sincosf(gth[ic], &s_i, &c_i);
+    const float l_now = -(xk - gx[ic]) * s_i + (yk - gy[ic]) * c_i;
 
-    float gap_own, v_own, gap_tgt, v_tgt;
-    npc_lead(Corridor(xk, yk, ck, sk, -l_now), k, K, vmask, sX, sY, sSP, ex, ey, espd, tid,
-             gap_own, v_own);
-    npc_lead(Corridor(xk, yk, ck, sk, tgt_k - l_now), k, K, vmask, sX, sY, sSP, ex, ey,
-             espd, tid, gap_tgt, v_tgt);
+    // own-lane and target-lane leads, the three corridors: each thread over
+    // its slots, then the ego (after every slot, as in the serial scan)
+    const Corridor c_own(xk, yk, ck, sk, -l_now), c_tgt(xk, yk, ck, sk, tgt_k - l_now);
+    const Corridor c_left(xk, yk, ck, sk, lane_w - l_now);
+    const Corridor c_right(xk, yk, ck, sk, -lane_w - l_now);
+    float gap_own = INFINITY, v_own = 0.f, gap_tgt = INFINITY, v_tgt = 0.f;
+    int i_own = KMAX, i_tgt = KMAX;
+    bool occ_l = false, occ_r = false, occ_o = false;
+#pragma unroll
+    for (int q = 0; q < QS; ++q) {
+      const int j = g + G * q;
+      if (j < K && j != k && s.valid[q]) {
+        lead_visit(c_own, s.x[q], s.y[q], sp[q], j, gap_own, i_own, v_own);
+        lead_visit(c_tgt, s.x[q], s.y[q], sp[q], j, gap_tgt, i_tgt, v_tgt);
+        occ_l = occ_l || occupies(c_left, s.x[q], s.y[q]);
+        occ_r = occ_r || occupies(c_right, s.x[q], s.y[q]);
+        occ_o = occ_o || occupies(c_own, s.x[q], s.y[q]);
+      }
+    }
+    lead_visit(c_own, ex, ey, espd, KMAX, gap_own, i_own, v_own);
+    lead_visit(c_tgt, ex, ey, espd, KMAX, gap_tgt, i_tgt, v_tgt);
+    occ_l = occ_l || occupies(c_left, ex, ey);
+    occ_r = occ_r || occupies(c_right, ex, ey);
+    occ_o = occ_o || occupies(c_own, ex, ey);
+    group_argmin_v(gap_own, i_own, v_own, gm);
+    group_argmin_v(gap_tgt, i_tgt, v_tgt, gm);
+    // nothing ahead: gap 1e4, speed 100
+    if (!(gap_own < INFINITY)) {
+      gap_own = 1e4f;
+      v_own = 100.f;
+    }
+    if (!(gap_tgt < INFINITY)) {
+      gap_tgt = 1e4f;
+      v_tgt = 100.f;
+    }
+    const bool left_free = !group_any(occ_l, gm);
+    const bool right_free = !group_any(occ_r, gm);
+    const bool own_free = !group_any(occ_o, gm);
     if (L > 0) {
-      const float d_light = npc_stop_distance(F, tl, L, t_abs, xk, yk, phik, ck, sk, spk);
+      const float d_light = npc_stop_distance(F, tl, L, t_abs, xk, yk, ck, sk, spk);
       v_tgt = d_light < gap_tgt ? 0.f : v_tgt;
       gap_tgt = fminf(gap_tgt, d_light);
     }
-    const bool left_free = npc_corridor_free(Corridor(xk, yk, ck, sk, lane_w - l_now), k, K,
-                                             vmask, sX, sY, ex, ey, tid);
-    const bool right_free = npc_corridor_free(Corridor(xk, yk, ck, sk, -lane_w - l_now), k,
-                                              K, vmask, sX, sY, ex, ey, tid);
-    const bool own_free = npc_corridor_free(Corridor(xk, yk, ck, sk, -l_now), k, K, vmask,
-                                            sX, sY, ex, ey, tid);
 
     // npc.lane_change_decision
     const float press = F[F_P_MIND] + spk * F[F_P_SAFET];
@@ -404,12 +516,12 @@ __device__ void npc_advance(const float* F, int K, int NG, const float* gx, cons
     float tgt_new = go_left ? lane_w : (go_right ? -lane_w : tgt_k);
     if (!in_lane && own_free && !blocked) tgt_new = 0.f;
 
-    // npc.npc_step: forward-windowed first-minimum match
-    const int lo = min(max(idx_k, 0), max(NG - 32, 0));
-    const int hi = min(lo + 32, NG);
+    // npc.npc_step: forward-windowed first-minimum match, rows split
+    const int lo = min(max(idx_k, 0), max(NG - AGENT_ROWS, 0));
+    const int hi = min(lo + AGENT_ROWS, NG);
     float best = INFINITY;
     int idx2 = 0;
-    for (int r = lo; r < hi; ++r) {
+    for (int r = lo + g; r < hi; r += G) {
       const float dx = gx[r] - xk, dy = gy[r] - yk;
       const float d = dx * dx + dy * dy;
       if (d < best) {
@@ -417,13 +529,16 @@ __device__ void npc_advance(const float* F, int K, int NG, const float* gx, cons
         idx2 = r;
       }
     }
+    group_argmin(best, idx2, gm);
     const int look = min(max(idx2 + 2 + (int)(spk * 0.25f), 0), NG - 1);
-    const float th_l = gth[look];
-    const float off = sOff[o];
-    const float dxp = (gx[look] - off * sinf(th_l)) - xk;
-    const float dyp = (gy[look] + off * cosf(th_l)) - yk;
+    float s_l, c_l;
+    sincosf(gth[look], &s_l, &c_l);
+    const float dxp = (gx[look] - off * s_l) - xk;
+    const float dyp = (gy[look] + off * c_l) - yk;
     float alpha = atan2f(dyp, dxp) - phik;
-    alpha = atan2f(sinf(alpha), cosf(alpha));
+    float s_a, c_a;
+    sincosf(alpha, &s_a, &c_a);
+    alpha = atan2f(s_a, c_a);
     const float ld = max_nan(hypot_j(dxp, dyp), 1.f);
     const float delta = atan2f(F[F_TWO_L] * sinf(alpha), ld);
     const float steer = clip(delta / F[F_MAX_STEER], -1.f, 1.f);
@@ -432,88 +547,165 @@ __device__ void npc_advance(const float* F, int K, int NG, const float* gx, cons
     const float s_star =
         F[F_P_MIND] + max_nan(spk * F[F_P_SAFET] + spk * (spk - v_tgt) / den, 0.f);
     const float r = spk / max_nan(F[F_P_MAXSPD], 0.1f);
-    const float q = s_star / max_nan(gap_tgt, 0.5f);
-    const float acc = clip(F[F_P_ACC] * ((1.f - (r * r) * (r * r)) - q * q), -F[F_P_DEC],
+    const float qq = s_star / max_nan(gap_tgt, 0.5f);
+    const float acc = clip(F[F_P_ACC] * ((1.f - (r * r) * (r * r)) - qq * qq), -F[F_P_DEC],
                            F[F_P_ACC]);
     // kinematic bicycle, no actuator lag
     const float v2 = max_nan(spk + acc * dt, 0.f);
     const float om2 = v2 * tanf(steer * F[F_MAX_STEER]) / F[F_AB];
     const float phi2 = phik + om2 * dt;
-    const float c2 = cosf(phi2), s2 = sinf(phi2);
-    sn[N_NX * P + o] = xk + v2 * c2 * dt;
-    sn[N_NY * P + o] = yk + v2 * s2 * dt;
-    sn[N_NVX * P + o] = v2 * c2;
-    sn[N_NVY * P + o] = v2 * s2;
-    sIdx[o] = idx2;
-    sTgt[o] = tgt_new;
+    float c2, s2;
+    sincosf(phi2, &s2, &c2);
+    if (g == owner) {
+#pragma unroll
+      for (int q = 0; q < QS; ++q) {
+        if (q == qk) {
+          nx[q] = xk + v2 * c2 * dt;
+          ny[q] = yk + v2 * s2 * dt;
+          nvx[q] = v2 * c2;
+          nvy[q] = v2 * s2;
+          s.idx[q] = idx2;
+          s.tgt[q] = tgt_new;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < QS; ++q) {
+    s.x[q] = nx[q];
+    s.y[q] = ny[q];
+    s.vx[q] = nvx[q];
+    s.vy[q] = nvy[q];
   }
 }
 
+// The 8 metric channels of ticks i0 .. i0 + n - 1: thread g, g < n, holds
+// tick i0 + g's pose (x, y, phi, vx, vy) and flags, matches it on the whole
+// target path (the lateral error at the new pose) and stores its tick.
+__device__ __forceinline__ void store_metrics(float* m_out, size_t plane, int i0, int n,
+                                              int g, const float* sx, const float* sy,
+                                              const float* tgt, const float* tgk, int NP,
+                                              float x, float y, float phi, float vx, float vy,
+                                              bool collided, bool arrived, bool ok) {
+  if (g >= n) return;
+  float best;
+  int mj;
+  match_part(sx, sy, NP, 0, 1, x, y, best, mj);
+  const float xm2 = sx[mj], ym2 = sy[mj], tm2 = tgt[mj], km2 = tgk[mj];
+  const float ex = x - xm2, ey = y - ym2;
+  float s2, c2;
+  sincosf(tm2, &s2, &c2);
+  const float ds2 = ex * c2 + ey * s2;
+  const float tr2 = tm2 + km2 * ds2;
+  sincosf(tr2, &s2, &c2);
+  const float lat = -ex * s2 + ey * c2;
+  const int i = i0 + g;
+  m_out[i] = x;
+  m_out[plane + i] = y;
+  m_out[2 * plane + i] = 3.6f * hypot_j(vx, vy);
+  m_out[3 * plane + i] = lat;
+  m_out[4 * plane + i] = phi;
+  m_out[5 * plane + i] = collided ? 1.f : 0.f;
+  m_out[6 * plane + i] = arrived ? 1.f : 0.f;
+  m_out[7 * plane + i] = ok ? 1.f : 0.f;
+}
+
+// Per-lane strides of the shared arrays that a group reads at consecutive
+// indices: a multiple of 32 floats plus G, so that the lanes of a warp start
+// G banks apart and the group's reads fall in distinct banks. The target
+// path: x of node j of lane l at [l * path_stride + j], y in a second such
+// array; the MPC: the lerped Minv and then v.
+__host__ __device__ __forceinline__ int path_stride(int NP) { return (NP + 31) / 32 * 32 + G; }
+__host__ __device__ __forceinline__ int mpc_stride(int nu) {
+  return (nu * nu + nu + 31) / 32 * 32 + G;
+}
+
+// Dynamic shared memory of a block, in floats: the MPC tables, the lanes'
+// target path x and y, the MPC lanes' lerped Minv and v.
+__host__ __device__ __forceinline__ size_t dyn_floats(int n_tab, int nu, int NP) {
+  const size_t tab = nu ? (size_t)n_tab * (nu * nu + 10 * nu) : 0;
+  return tab + (size_t)2 * LANES * path_stride(NP) + (nu ? (size_t)LANES * mpc_stride(nu) : 0);
+}
+
 template <bool MPC, bool DYN, bool GENERAL, bool TRAFFIC = false>
-__global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
+__global__ void __launch_bounds__(THREADS, 1) tick_kernel(TickArgs a) {
   __shared__ float s_tab[MPC ? 1 : TABMAX * 4];
-  __shared__ float s_npc[TRAFFIC ? N_COUNT * KMAX * THREADS : 1];
-  __shared__ int s_nidx[TRAFFIC ? KMAX * THREADS : 1];
+  __shared__ float s_ring[NBMAX * LANES];  // the lanes' PID error rings, lane-minor
   extern __shared__ float4 dsm4[];
   float* dsm = reinterpret_cast<float*>(dsm4);
   const int nu = MPC ? a.nu : 0;
   const int R = nu * nu + 10 * nu;  // floats per MPC table row
+  const int NP = a.NP;
   if constexpr (MPC) {
     for (int e = threadIdx.x; e < a.n_tab * R; e += blockDim.x) dsm[e] = a.tab[e];
   } else {
     for (int e = threadIdx.x; e < a.n_tab * 4; e += blockDim.x) s_tab[e] = a.tab[e];
   }
+  const int lane = threadIdx.x / G, g = threadIdx.x % G;
+  const int b = blockIdx.x * LANES + lane;
+  // the lanes' target path x and y
+  const int PS = path_stride(NP);
+  float* s_path = dsm + (MPC ? (size_t)a.n_tab * R : 0);
+  for (int e = threadIdx.x; e < LANES * 2 * NP; e += blockDim.x) {
+    const int l = e / (2 * NP), r = e % (2 * NP);  // r: c * NP + j of the lane's (2, NP) x, y
+    const int bl = blockIdx.x * LANES + l;
+    if (bl < a.B)
+      s_path[(r / NP) * LANES * PS + l * PS + r % NP] = a.target[(size_t)bl * 4 * NP + r];
+  }
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
-  const int tid = threadIdx.x;
+  const unsigned gm = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
   const float* F = a.f;
-  const int K = a.K, NP = a.NP, ND = a.ND, NB = a.NB;
+  const int K = a.K, ND = a.ND, NB = a.NB;
   const int substeps = GENERAL ? a.substeps : 1;
   const bool raw = GENERAL ? (a.raw != 0) : false;
   const float dts = GENERAL ? F[F_DT_SUB] : F[F_DT];
+  const float* sx = s_path + lane * PS;
+  const float* sy = s_path + (size_t)LANES * PS + lane * PS;
 
-  // per-lane MPC vectors after the tables, lane-minor
-  float* sM = dsm + a.n_tab * R;          // [nu*nu][THREADS] lerped Minv
-  float* sZ = sM + nu * nu * THREADS;     // [nu][THREADS]
-  float* sUd = sZ + nu * THREADS;
-  float* sF = sUd + nu * THREADS;
-  float* sV = sF + nu * THREADS;
-  float* sU = sV + nu * THREADS;
+  // MPC: the lane's lerped Minv and v after the target paths; this thread's
+  // rows of (z, u_d), zeros at cycle start
+  float* sM = s_path + (size_t)2 * LANES * PS + (MPC ? lane * mpc_stride(nu) : 0);
+  float* sV = sM + nu * nu;
+  float mz[QU], mud[QU];
+#pragma unroll
+  for (int m = 0; m < QU; ++m) mz[m] = mud[m] = 0.f;
   int admm_ticks = 0;
-  if constexpr (MPC) {
-    for (int i = 0; i < nu; ++i) {
-      sZ[i * THREADS + tid] = 0.f;
-      sUd[i * THREADS + tid] = 0.f;
-    }
-  }
 
   const float* e0 = a.ego + (size_t)b * 9;
   float x = e0[0], y = e0[1], phi = e0[2], vx = e0[3], vy = e0[4], omega = e0[5];
   float ax = e0[6], ay = e0[7], steer_ap = e0[8];
 
-  float buf[NBMAX];
-  for (int j = 0; j < NB; ++j) buf[j] = a.pbuf[(size_t)b * NB + j];
+  // PID error ring: thread 0 of the group writes each tick's error at
+  // `head`; the newest `live` entries are the buffer's, older ones read as
+  // the zeros a separation left
+  float* ring = s_ring + lane;
+  for (int j = g; j < NB; j += G) ring[j * LANES] = a.pbuf[(size_t)b * NB + j];
+  __syncwarp(gm);
   int head = 0;  // ring index of the oldest entry
+  int live = NB;
   int cnt = a.pcnt[b];
   float last = a.plast[b];
+  const bool use_sum = F[F_KI] != 0.f, use_deriv = F[F_KD] != 0.f;
 
-  float ox[KMAX], oy[KMAX], ovx[KMAX], ovy[KMAX];
-  bool ovalid[KMAX];
+  Slots s;
   const float* ob = a.obs + (size_t)b * 5 * K;
+  const size_t nb = (size_t)b * K;
 #pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    bool in = k < K;
-    ox[k] = in ? ob[k] : 0.f;
-    oy[k] = in ? ob[K + k] : 0.f;
-    ovx[k] = in ? ob[2 * K + k] : 0.f;
-    ovy[k] = in ? ob[3 * K + k] : 0.f;
-    ovalid[k] = in && ob[4 * K + k] > 0.5f;
+  for (int q = 0; q < QS; ++q) {
+    const int k = g + G * q;
+    const bool in = k < K;
+    s.x[q] = in ? ob[k] : 0.f;
+    s.y[q] = in ? ob[K + k] : 0.f;
+    s.vx[q] = in ? ob[2 * K + k] : 0.f;
+    s.vy[q] = in ? ob[3 * K + k] : 0.f;
+    s.valid[q] = in && ob[4 * K + k] > 0.5f;
+    s.off[q] = (TRAFFIC && in) ? a.lane_off[nb + k] : 0.f;
+    s.tgt[q] = (TRAFFIC && in) ? a.lane_tgt[nb + k] : 0.f;
+    s.idx[q] = (TRAFFIC && in) ? a.nidx[nb + k] : 0;
   }
   const float* spd = a.tspeed + (size_t)b * ND;
-  const float* tgx = a.target + (size_t)b * 4 * NP;
-  const float* tgy = tgx + NP;
-  const float* tgt = tgy + NP;
+  const float* tgt = a.target + (size_t)b * 4 * NP + 2 * NP;
   const float* tgk = tgt + NP;
   const bool feas = a.feas[b];
   const bool plan_ok = a.plan_ok[b];
@@ -529,25 +721,21 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   const float* tl = L > 0 ? a.lights + (size_t)b * 6 * L : nullptr;
   const float t_cycle = L > 0 ? a.t0[b] : 0.f;
 
-  // traffic: the lane's global path, its NPC lane state and match indices in
-  // shared memory, the valid and live-agent slots as bit masks
+  // traffic: the lane's global path and its live-agent slots as a bit mask
   const int NG = TRAFFIC ? a.NG : 0;
-  const size_t gb = (size_t)b * NG, nb = (size_t)b * K;
+  const size_t gb = (size_t)b * NG;
   const float* gx = TRAFFIC ? a.gpx + gb : nullptr;
   const float* gy = TRAFFIC ? a.gpy + gb : nullptr;
   const float* gth = TRAFFIC ? a.gpth + gb : nullptr;
-  unsigned vmask = 0u, amask = 0u;
+  unsigned amask = 0u;
   if constexpr (TRAFFIC) {
-    for (int k = 0; k < K; ++k) {
-      const int o = k * THREADS + tid;
-      s_nidx[o] = a.nidx[nb + k];
-      s_npc[N_OFF * KMAX * THREADS + o] = a.lane_off[nb + k];
-      s_npc[N_TGT * KMAX * THREADS + o] = a.lane_tgt[nb + k];
-      const bool valid = ob[4 * K + k] > 0.5f;
-      vmask |= valid ? 1u << k : 0u;
-      amask |= (valid && a.agent[nb + k]) ? 1u << k : 0u;
-    }
+    for (int k = 0; k < K; ++k)
+      amask |= (ob[4 * K + k] > 0.5f && a.agent[nb + k]) ? 1u << k : 0u;
   }
+
+  // the tick this thread keeps for the metrics (i % G == g)
+  float kx = 0.f, ky = 0.f, kphi = 0.f, kvx = 0.f, kvy = 0.f;
+  bool kcoll = false, karr = false;
 
   for (int i = 0; i < a.n_ticks; ++i) {
     // planned speed at t_rel: uniform hat, two nonzero weights
@@ -559,8 +747,10 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     float plan_speed = w0 * spd[k0] + w1 * spd[k0 + 1];
     plan_speed = plan_ok ? plan_speed : 0.f;
 
-    // time-headway ACC guard along the motion direction
-    const float cphi = cosf(phi), sphi = sinf(phi);
+    // time-headway ACC guard along the motion direction: each thread over
+    // its slots, the nearest lead over the group
+    float cphi, sphi;
+    sincosf(phi, &sphi, &cphi);
     const float vxw = vx * cphi - vy * sphi;
     const float vyw = vy * cphi + vx * sphi;
     const float spd_w = hypot_j(vxw, vyw);
@@ -570,12 +760,13 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const float uy = slow ? sphi : vyw / den;
     float d_lead = INFINITY;
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const float dxo = ox[k] - x, dyo = oy[k] - y;
+    for (int q = 0; q < QS; ++q) {
+      const float dxo = s.x[q] - x, dyo = s.y[q] - y;
       const float d_long = dxo * ux + dyo * uy;
       const float d_lat = -dxo * uy + dyo * ux;
-      if (ovalid[k] && d_long > 0.f && fabsf(d_lat) < 2.f) d_lead = fminf(d_lead, d_long);
+      if (s.valid[q] && d_long > 0.f && fabsf(d_lat) < 2.f) d_lead = fminf(d_lead, d_long);
     }
+    d_lead = group_fmin(d_lead, gm);
     float v_cap = fmaxf((d_lead - F[F_STANDOFF]) / F[F_HEADWAY], 0.f);
     if (L > 0) {
       // red-light cap: nearest red stop line ahead in the same corridor
@@ -605,15 +796,20 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const float xp = x + (vxs * cphi - vy * sphi) * ts;
     const float yp = y + (vy * cphi + vxs * sphi) * ts;
     const float php = phi + omega * ts;
-    const int mi = match(tgx, tgy, NP, xp, yp);
-    const float xm = tgx[mi], ym = tgy[mi], thm = tgt[mi], km = tgk[mi];
-    const float tx_ = cosf(thm), ty_ = sinf(thm);
+    float best;
+    int mi;
+    match_part(sx, sy, NP, g, G, xp, yp, best, mi);
+    group_argmin(best, mi, gm);
+    const float xm = sx[mi], ym = sy[mi], thm = tgt[mi], km = tgk[mi];
+    float tx_, ty_;
+    sincosf(thm, &ty_, &tx_);
     const float ddx = xp - xm, ddy = yp - ym;
     const float e_d = -ty_ * ddx + tx_ * ddy;
     const float e_s = tx_ * ddx + ty_ * ddy;
     const float theta_r = thm + km * e_s;
     const float dph = php - theta_r;
-    const float cd = cosf(dph), sd = sinf(dph);
+    float cd, sd;
+    sincosf(dph, &sd, &cd);
     const float e_d_dot = vy * cd + vxs * sd;
     const float e_phi = raw ? dph : sd;
     const float s_dot = (vxs * cd - vy * sd) / (1.f - km * e_d);
@@ -623,7 +819,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
       // the MPC's u is the normalized steer: no rescale
       const float* r0 = dsm + ii * R;
       steer_cmd = clip(mpc_tick(r0, r0 + R, wf, e_d, e_d_dot, e_phi, e_phi_dot, km, nu,
-                                a.mpc_iters, sM, sZ, sUd, sF, sV, sU, tid, admm_ticks),
+                                a.mpc_iters, mz, mud, sM, sV, g, gm, admm_ticks),
                        -F[F_STEER_LIMIT], F[F_STEER_LIMIT]);
     } else {
       float kg[4];
@@ -638,25 +834,28 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
       steer_cmd = clip(delta_cmd / F[F_MAX_STEER], -F[F_STEER_LIMIT], F[F_STEER_LIMIT]);
     }
 
-    // PID with integral separation
+    // PID with integral separation; the window sum only where ki != 0, the
+    // derivative only where kd != 0 (control/pid.py makes the same choice)
     const float err = tick_kmh - 3.6f * hypot_j(vx, vy);
-    buf[head] = err;
+    if (g == 0) ring[head * LANES] = err;
     head = head + 1 == NB ? 0 : head + 1;
+    live = min(live + 1, NB);
     cnt = min(cnt + 1, NB);
     const bool have_two = cnt >= 2;
     float integral = 0.f, deriv = 0.f;
-    if (have_two) {
+    if (have_two && use_sum) {
+      __syncwarp(gm);
       float sum = 0.f;
-      for (int j = 0; j < NB; ++j) {
-        int r = head + j;
-        sum += buf[r >= NB ? r - NB : r];
+      for (int j = NB - live; j < NB; ++j) {
+        const int r = head + j;
+        sum += ring[(r >= NB ? r - NB : r) * LANES];
       }
       integral = sum * F[F_PID_DT];
-      deriv = (err - last) / F[F_PID_DT];
     }
+    if (have_two && use_deriv) deriv = (err - last) / F[F_PID_DT];
     if (fabsf(err) > F[F_SEP]) {
       integral = 0.f;
-      for (int j = 0; j < NB; ++j) buf[j] = 0.f;
+      live = 0;
       cnt = 0;
     }
     const float cmd = F[F_KP] * err + F[F_KI] * integral + F[F_KD] * deriv;
@@ -692,7 +891,8 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         vy = moving ? vy + vy_dot * dts : 0.f;
         omega = moving ? omega + omega_dot * dts : 0.f;
         phi = phi + omega * dts;
-        const float c = cosf(phi), sn = sinf(phi);
+        float c, sn;
+        sincosf(phi, &sn, &c);
         x = x + (vxn * c - vy * sn) * dts;
         y = y + (vy * c + vxn * sn) * dts;
         ax = accel * c;
@@ -702,7 +902,8 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         const float v = fmaxf(vx + accel * dts, 0.f);
         omega = v * tanf(delta) / F[F_AB];
         phi = phi + omega * dts;
-        const float cph = cosf(phi), sph = sinf(phi);
+        float cph, sph;
+        sincosf(phi, &sph, &cph);
         x = x + v * cph * dts;
         y = y + v * sph * dts;
         ax = accel * cph;
@@ -714,98 +915,79 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
 
     // obstacles advance (traffic: the NPC agents' tick); collision check
     if constexpr (TRAFFIC) {
-      const int P = KMAX * THREADS;
+      agent_step(F, K, NG, gx, gy, gth, amask, x, y, hypot_j(vx, vy), tl, L,
+                 t_cycle + t_rel, s, g, gm);
+    } else {
 #pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < K) {
-          const int o = k * THREADS + tid;
-          s_npc[N_X * P + o] = ox[k];
-          s_npc[N_Y * P + o] = oy[k];
-          s_npc[N_VX * P + o] = ovx[k];
-          s_npc[N_VY * P + o] = ovy[k];
-          s_npc[N_SP * P + o] = hypot_j(ovx[k], ovy[k]);
-        }
-      }
-      npc_advance(F, K, NG, gx, gy, gth, vmask, amask, x, y, hypot_j(vx, vy),
-                  tl, L, t_cycle + t_rel, s_npc, s_nidx, tid);
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < K) {
-          const int o = k * THREADS + tid;
-          ox[k] = s_npc[N_NX * P + o];
-          oy[k] = s_npc[N_NY * P + o];
-          ovx[k] = s_npc[N_NVX * P + o];
-          ovy[k] = s_npc[N_NVY * P + o];
-        }
+      for (int q = 0; q < QS; ++q) {
+        s.x[q] = s.x[q] + s.vx[q] * dt;
+        s.y[q] = s.y[q] + s.vy[q] * dt;
       }
     }
-    bool collided = false;
+    bool hit = false;
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if constexpr (!TRAFFIC) {
-        ox[k] = ox[k] + ovx[k] * dt;
-        oy[k] = oy[k] + ovy[k] * dt;
-      }
-      collided = collided || (ovalid[k] && hypot_j(ox[k] - x, oy[k] - y) < coll_r);
+    for (int q = 0; q < QS; ++q)
+      hit = hit || (s.valid[q] && hypot_j(s.x[q] - x, s.y[q] - y) < coll_r);
+    const bool collided = group_any(hit, gm);
+
+    // the metrics, G ticks at a time
+    const int slot = i % G;
+    if (slot == g) {
+      kx = x;
+      ky = y;
+      kphi = phi;
+      kvx = vx;
+      kvy = vy;
+      kcoll = collided;
+      karr = arrived;
     }
-
-    // lateral error at the new pose
-    const int mj = match(tgx, tgy, NP, x, y);
-    const float xm2 = tgx[mj], ym2 = tgy[mj], tm2 = tgt[mj], km2 = tgk[mj];
-    const float ex = x - xm2, ey = y - ym2;
-    const float ds2 = ex * cosf(tm2) + ey * sinf(tm2);
-    const float tr2 = tm2 + km2 * ds2;
-    const float lat = -ex * sinf(tr2) + ey * cosf(tr2);
-
-    m_out[i] = x;
-    m_out[plane + i] = y;
-    m_out[2 * plane + i] = 3.6f * hypot_j(vx, vy);
-    m_out[3 * plane + i] = lat;
-    m_out[4 * plane + i] = phi;
-    m_out[5 * plane + i] = collided ? 1.f : 0.f;
-    m_out[6 * plane + i] = arrived ? 1.f : 0.f;
-    m_out[7 * plane + i] = (feas && plan_ok) ? 1.f : 0.f;
+    if (slot == G - 1 || i == a.n_ticks - 1)
+      store_metrics(m_out, plane, i - slot, slot + 1, g, sx, sy, tgt, tgk, NP, kx, ky, kphi,
+                    kvx, kvy, kcoll, karr, feas && plan_ok);
   }
 
-  float* eo = a.ego_out + (size_t)b * 9;
-  eo[0] = x; eo[1] = y; eo[2] = phi; eo[3] = vx; eo[4] = vy; eo[5] = omega;
-  eo[6] = ax; eo[7] = ay; eo[8] = steer_ap;
-  for (int j = 0; j < NB; ++j) {
-    int r = head + j;
-    a.pbuf_out[(size_t)b * NB + j] = buf[r >= NB ? r - NB : r];
+  __syncwarp(gm);
+  if (g == 0) {
+    float* eo = a.ego_out + (size_t)b * 9;
+    eo[0] = x; eo[1] = y; eo[2] = phi; eo[3] = vx; eo[4] = vy; eo[5] = omega;
+    eo[6] = ax; eo[7] = ay; eo[8] = steer_ap;
+    a.pcnt_out[b] = cnt;
+    a.plast_out[b] = last;
+    a.arrived_out[b] = arrived;
+    if constexpr (MPC) a.admm_out[b] = admm_ticks;
   }
-  a.pcnt_out[b] = cnt;
-  a.plast_out[b] = last;
-  if constexpr (TRAFFIC) {
-    float* oo = a.obsxy_out + (size_t)b * 4 * K;
+  for (int j = g; j < NB; j += G) {
+    const int r = head + j;
+    a.pbuf_out[(size_t)b * NB + j] = j >= NB - live ? ring[(r >= NB ? r - NB : r) * LANES] : 0.f;
+  }
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        oo[k] = ox[k];
-        oo[K + k] = oy[k];
-        oo[2 * K + k] = ovx[k];
-        oo[3 * K + k] = ovy[k];
+  for (int q = 0; q < QS; ++q) {
+    const int k = g + G * q;
+    if (k < K) {
+      if constexpr (TRAFFIC) {
+        float* oo = a.obsxy_out + (size_t)b * 4 * K;
+        oo[k] = s.x[q];
+        oo[K + k] = s.y[q];
+        oo[2 * K + k] = s.vx[q];
+        oo[3 * K + k] = s.vy[q];
+        a.nidx_out[nb + k] = s.idx[q];
+        a.off_out[nb + k] = s.off[q];
+        a.tgt_out[nb + k] = s.tgt[q];
+      } else {
+        a.obsxy_out[(size_t)b * 2 * K + k] = s.x[q];
+        a.obsxy_out[(size_t)b * 2 * K + K + k] = s.y[q];
       }
     }
-    for (int k = 0; k < K; ++k) {
-      const int o = k * THREADS + tid;
-      a.nidx_out[nb + k] = s_nidx[o];
-      a.off_out[nb + k] = s_npc[N_OFF * KMAX * THREADS + o];
-      a.tgt_out[nb + k] = s_npc[N_TGT * KMAX * THREADS + o];
-    }
-  } else {
-    for (int k = 0; k < K; ++k) {
-      a.obsxy_out[(size_t)b * 2 * K + k] = ox[k];
-      a.obsxy_out[(size_t)b * 2 * K + K + k] = oy[k];
-    }
   }
-  a.arrived_out[b] = arrived;
   if constexpr (MPC) {
-    for (int i = 0; i < nu; ++i) {
-      a.mpc_z_out[(size_t)b * nu + i] = sZ[i * THREADS + tid];
-      a.mpc_ud_out[(size_t)b * nu + i] = sUd[i * THREADS + tid];
+#pragma unroll
+    for (int m = 0; m < QU; ++m) {
+      const int i = g + G * m;
+      if (i < nu) {
+        a.mpc_z_out[(size_t)b * nu + i] = mz[m];
+        a.mpc_ud_out[(size_t)b * nu + i] = mud[m];
+      }
     }
-    a.admm_out[b] = admm_ticks;
   }
 }
 
@@ -862,28 +1044,34 @@ TickArgs unpack(void* const* ptrs, const float* fparams, const int* iparams,
 }
 
 bool valid_args(const TickArgs& a) {
-  return a.K <= KMAX && a.NB <= NBMAX && a.ND >= 2 && a.NP >= 1 && a.n_tab >= 2 &&
-         a.L >= 0 && (a.L == 0 || (a.lights != nullptr && a.t0 != nullptr)) &&
+  return a.K <= KMAX && a.NB >= 1 && a.NB <= NBMAX && a.ND >= 2 && a.NP >= 1 &&
+         a.n_tab >= 2 && a.L >= 0 && (a.L == 0 || (a.lights != nullptr && a.t0 != nullptr)) &&
          a.substeps >= 1;
 }
 
-template <bool MPC, bool DYN, bool TRAFFIC>
-int launch_variant(const TickArgs& a, cudaStream_t stream) {
-  size_t smem = 0;
-  if (MPC) {
-    if (a.nu < 1 || a.nu > NUMAX) return (int)cudaErrorInvalidValue;
-    smem = sizeof(float) * ((size_t)a.n_tab * (a.nu * a.nu + 10 * a.nu) +
-                            (size_t)(a.nu * a.nu + 5 * a.nu) * THREADS);
+template <bool MPC, bool DYN, bool GENERAL, bool TRAFFIC>
+int launch(const TickArgs& a, cudaStream_t stream) {
+  if (MPC && (a.nu < 1 || a.nu > NUMAX)) return (int)cudaErrorInvalidValue;
+  if (!MPC && a.n_tab > TABMAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * dyn_floats(a.n_tab, MPC ? a.nu : 0, a.NP);
+  if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&tick_kernel<MPC, DYN, true, TRAFFIC>),
+        reinterpret_cast<const void*>(&tick_kernel<MPC, DYN, GENERAL, TRAFFIC>),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-  } else if (a.n_tab > TABMAX) {
-    return (int)cudaErrorInvalidValue;
   }
-  const int blocks = (a.B + THREADS - 1) / THREADS;
-  tick_kernel<MPC, DYN, true, TRAFFIC><<<blocks, THREADS, smem, stream>>>(a);
+  const int blocks = (a.B + LANES - 1) / LANES;
+  tick_kernel<MPC, DYN, GENERAL, TRAFFIC><<<blocks, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool TRAFFIC>
+int launch_any(const TickArgs& a, const int* iparams, cudaStream_t s) {
+  const bool mpc = iparams[8] != 0, dyn = iparams[9] != 0;
+  if (mpc) {
+    return dyn ? launch<true, true, true, TRAFFIC>(a, s) : launch<true, false, true, TRAFFIC>(a, s);
+  }
+  return dyn ? launch<false, true, true, TRAFFIC>(a, s) : launch<false, false, true, TRAFFIC>(a, s);
 }
 
 }  // namespace
@@ -893,11 +1081,9 @@ int launch_variant(const TickArgs& a, cudaStream_t stream) {
 extern "C" int tick_lqr(void* const* ptrs, const float* fparams, const int* iparams,
                         void* stream) {
   TickArgs a = unpack(ptrs, fparams, iparams, false);
-  if (!valid_args(a) || a.n_tab > TABMAX) return (int)cudaErrorInvalidValue;
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
-  const int blocks = (a.B + THREADS - 1) / THREADS;
-  tick_kernel<false, false, false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch<false, false, false, false>(a, (cudaStream_t)stream);
 }
 
 // Every controller / plant pair with runtime substeps and heading-error
@@ -909,18 +1095,15 @@ extern "C" int tick_variant(void* const* ptrs, const float* fparams, const int* 
   TickArgs a = unpack(ptrs, fparams, iparams, true);
   if (!valid_args(a)) return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
-  const bool mpc = iparams[8] != 0, dyn = iparams[9] != 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mpc) {
-    return dyn ? launch_variant<true, true, false>(a, s) : launch_variant<true, false, false>(a, s);
-  }
-  return dyn ? launch_variant<false, true, false>(a, s) : launch_variant<false, false, false>(a, s);
+  return launch_any<false>(a, iparams, (cudaStream_t)stream);
 }
 
 // The agent-traffic branch (K7), every controller / plant pair, with or
 // without lights: ptrs and iparams as tick_variant's, then ptrs (global path
 // x, y, theta; NPC indices, lane offsets, lane targets, agent flags; their
-// three outputs) and iparams (NG); obsxy_out is (B, 4, K).
+// three outputs) and iparams (NG); obsxy_out is (B, 4, K). LQR + kinematic
+// with one plant step and the sin heading error runs the instantiation with
+// those as compile-time constants.
 extern "C" int tick_traffic(void* const* ptrs, const float* fparams, const int* iparams,
                             void* stream) {
   TickArgs a = unpack(ptrs, fparams, iparams, true);
@@ -939,10 +1122,8 @@ extern "C" int tick_traffic(void* const* ptrs, const float* fparams, const int* 
   for (int j = 26; j < 36; ++j) null |= ptrs[j] == nullptr;
   if (!valid_args(a) || a.NG < 1 || null) return (int)cudaErrorInvalidValue;
   if (a.B <= 0) return 0;
-  const bool mpc = iparams[8] != 0, dyn = iparams[9] != 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mpc) {
-    return dyn ? launch_variant<true, true, true>(a, s) : launch_variant<true, false, true>(a, s);
-  }
-  return dyn ? launch_variant<false, true, true>(a, s) : launch_variant<false, false, true>(a, s);
+  if (iparams[8] == 0 && iparams[9] == 0 && a.substeps == 1 && a.raw == 0)
+    return launch<false, false, false, true>(a, s);
+  return launch_any<true>(a, iparams, s);
 }

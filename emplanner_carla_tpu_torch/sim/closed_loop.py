@@ -60,13 +60,30 @@ NU_MAX = 16     # MPC decision variables
 KMAX = 16       # obstacle slots, every entry point
 NB_MAX = 64     # PID buffer depth
 TAB_MAX = 256   # LQR gain-table rows
-SMEM_BYTES_MAX = 232_448  # shared memory of a block (the MPC tables and vectors)
+SMEM_BYTES_MAX = 232_448  # shared memory of a block
+# the kernel's block: 32 lanes, a lane group of TICK_G threads; its shared
+# arrays a lane group reads at consecutive indices start TICK_G banks apart
+TICK_LANES, TICK_G = 32, 8
 
 
-def check_tick_kernel_limits(K: int, NB: int, n_tab: int, nu: int = 0) -> None:
+def tick_kernel_smem(n_tab: int, nu: int, NP: int) -> int:
+    """Bytes of shared memory a block of the tick kernel takes: the PID
+    error rings and the LQR gain table (static), the MPC tables, the lanes'
+    target path x and y and the MPC lanes' lerped Minv and v (dynamic)."""
+    def stride(n):
+        return (n + 31) // 32 * 32 + TICK_G
+    floats = NB_MAX * TICK_LANES + (1 if nu else TAB_MAX * 4) \
+        + 2 * TICK_LANES * stride(NP)
+    if nu:
+        floats += n_tab * (nu * nu + 10 * nu) + TICK_LANES * stride(nu * nu + nu)
+    return 4 * floats
+
+
+def check_tick_kernel_limits(K: int, NB: int, n_tab: int, nu: int = 0,
+                             NP: int = 0) -> None:
     """Raise ``ValueError`` naming the tick kernel's limit that a launch
-    with K obstacle slots, a PID buffer of NB, an n_tab-row LQR or MPC table
-    and nu MPC variables (0: LQR) is past."""
+    with K obstacle slots, a PID buffer of NB, an n_tab-row LQR or MPC table,
+    nu MPC variables (0: LQR) and an NP-node target path is past."""
     if not 0 <= K <= KMAX:
         raise ValueError(f"the tick kernel (csrc/tick_lqr.cu) holds at most {KMAX} "
                          f"obstacle slots, got {K}")
@@ -78,11 +95,11 @@ def check_tick_kernel_limits(K: int, NB: int, n_tab: int, nu: int = 0) -> None:
     if nu > NU_MAX:
         raise ValueError(f"the tick kernel holds at most {NU_MAX} MPC variables, got "
                          f"mpc_n * mpc_p = {nu}")
-    smem = 4 * (n_tab * (nu * nu + 10 * nu) + (nu * nu + 5 * nu) * 32) if nu else 0
+    smem = tick_kernel_smem(n_tab, nu, NP)
     if smem > SMEM_BYTES_MAX:
-        raise ValueError(f"the tick kernel's MPC tables need {smem} bytes of shared "
-                         f"memory, more than the {SMEM_BYTES_MAX} a block has "
-                         f"({n_tab} rows, {nu} variables)")
+        raise ValueError(f"the tick kernel's tables and target paths need {smem} bytes "
+                         f"of shared memory, more than the {SMEM_BYTES_MAX} a block has "
+                         f"({n_tab} table rows, {nu} MPC variables, {NP} path nodes)")
 
 
 class TickMetrics(NamedTuple):
@@ -359,7 +376,7 @@ def _launch_ticks(ego, pid_buf, pid_cnt, pid_last, obs, tspeed, ttime, target,
         table = tabs["packed"]
     else:
         v0, dv, table = lateral.gain_table_on(vp, cc, str(dev))
-    check_tick_kernel_limits(K, NB, table.shape[0], nu)
+    check_tick_kernel_limits(K, NB, table.shape[0], nu, NP)
     for t, shp, dt_, nm in (
         (ego_in, (B, 9), torch.float32, "ego"),
         (pid_buf, (B, NB), torch.float32, "pid_buffer"),

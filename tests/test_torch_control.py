@@ -337,3 +337,32 @@ def test_simulate_mpc_dynamic_matches_oracle():
     assert len(ox) == len(px)
     rmse = lateral_rmse(px, py, ox, oy)
     assert rmse <= 0.05, f"port MPC/dynamic lateral RMSE vs oracle {rmse:.3f} m"
+
+
+@pytest.mark.parametrize("ki,kd", [(0.0, 0.0), (0.3, 0.05)])
+def test_pid_core_matches_jax(ki, kd):
+    """``pid_core`` against the JAX package's PID, which always sums the
+    error window and takes the derivative, on finite random buffers with and
+    without integral separation. With ki = kd = 0 the port skips both (the
+    tick kernel's choice) and the command, buffer and count are the same;
+    with ki and kd nonzero it sums as the JAX PID does, in another order, so
+    the command is held at float32 round-off."""
+    rng = np.random.default_rng(4)
+    jc = dataclasses.replace(JC, control=dataclasses.replace(JC.control, ki=ki, kd=kd))
+    tc = convert.config_from_dict(dataclasses.asdict(jc))
+    nb = jc.control.pid_buffer
+    buf = rng.uniform(-2.0, 2.0, (64, nb)).astype(np.float32)
+    count = rng.integers(0, nb + 1, 64).astype(np.int32)
+    last = rng.uniform(-2.0, 2.0, 64).astype(np.float32)
+    err = rng.uniform(-3.0, 3.0, 64).astype(np.float32)
+    cmd_j, buf_j, cnt_j, _ = j_pid.pid_core(jnp.asarray(buf.T), jnp.asarray(count[None]),
+                                            jnp.asarray(last[None]), jnp.asarray(err[None]),
+                                            jc.control)
+    cmd_t, buf_t, cnt_t, _ = t_pid.pid_core(t32(buf), torch.as_tensor(count), t32(last),
+                                            t32(err), tc.control)
+    np.testing.assert_array_equal(np_of(buf_t), np.asarray(buf_j).T)
+    np.testing.assert_array_equal(np_of(cnt_t), np.asarray(cnt_j)[0])
+    if ki == 0.0 and kd == 0.0:
+        np.testing.assert_array_equal(np_of(cmd_t), np.asarray(cmd_j)[0])
+    else:
+        np.testing.assert_allclose(np_of(cmd_t), np.asarray(cmd_j)[0], rtol=1e-6, atol=1e-6)

@@ -25,7 +25,8 @@ from emplanner_carla_tpu_torch.types import STSegments, tree_to
 from emplanner_carla_tpu_torch.config import mpc_feedforward_variant
 from torch_port_helpers import (  # noqa: F401
     assert_metrics_match, assert_qp_close, assert_tick_bar, assert_traffic_bar,
-    assert_within_roundoff, cuda_device, np_of, t32, warm_ladder_f64,
+    assert_within_roundoff, cuda_device, first_lanes, np_of, t32, tensors_of,
+    warm_ladder_f64,
 )
 
 CFG = EMConfig(loop=dataclasses.replace(EMConfig().loop, n_plans=2, plan_every=20))
@@ -528,3 +529,160 @@ def test_simulate_traffic_on_card_matches_cpu(cuda_device, full):
                          closed_loop.TickMetrics._fields, "traffic.")
     assert torch.equal(c_gpu.npc_path_index.cpu(), c_cpu.npc_path_index)
     assert torch.equal(c_gpu.npc_lane.target.cpu(), c_cpu.npc_lane.target)
+
+
+def _tick_case(kind, device, cfg=CFG, B=64):
+    """(wrapper, plain loop, args, kw) of one tick-loop cycle: the
+    constant-velocity obstacles' (``_tick_args``) or the agents'
+    (``_traffic_args``), under ``cfg``."""
+    if kind == "ticks":
+        return (closed_loop.run_ticks_kernel, closed_loop._full_ticks_base,
+                _tick_args(device, cfg, B=B), {})
+    args, kw = _traffic_args(device, cfg, B=B)
+    return (closed_loop.run_traffic_ticks_kernel, closed_loop._traffic_ticks_base,
+            args[:-1] + (cfg,), kw)
+
+
+def _pairs(path, turn=0.0):
+    """The path with its nodes in identical (x, y) pairs (2m, 2m + 1), node
+    2m + 1's heading turned by ``turn``: every nearest-node query ties."""
+    n = path.x.shape[1]
+    even = (torch.arange(n, device=path.x.device) // 2) * 2
+    odd = (torch.arange(n, device=path.x.device) % 2).to(path.theta.dtype)
+    return path._replace(x=path.x[:, even].contiguous(), y=path.y[:, even].contiguous(),
+                         theta=(path.theta + turn * odd).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ticks", "traffic"])
+def test_tick_matches_break_exact_ties_to_the_lowest_index_on_card(cuda_device, kind):
+    """Exact ties in both first-minimum matches: a target path whose nodes
+    come in identical (x, y) pairs, the odd node of each pair turned by 0.3
+    rad (a match that took it would steer and measure otherwise), and, with
+    agents, a global path whose rows come in pairs too, so that every row of
+    an agent's window ties with its twin. The kernel's lane-group argmin
+    keeps the lowest index, as the plain version's first minimum does."""
+    run, plain, args, kw = _tick_case(kind, cuda_device)
+    args = list(args)
+    args[7] = _pairs(args[7], turn=0.3)
+    if kind == "traffic":
+        tr = kw["traffic"]
+        kw["traffic"] = tr._replace(global_path=_pairs(tr.global_path))
+    out_k = run(*args, **kw)
+    out_p = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_metrics_match(closed_loop.TickMetrics(*out_k[6], None),
+                         closed_loop.TickMetrics(*[np_of(a) for a in out_p[6]], None),
+                         TICK_FIELDS, "ties.")
+    if kind == "traffic":
+        assert_traffic_bar(out_k, out_p)
+        moved = out_k[8] != kw["traffic"].npc_idx
+        assert bool(moved.any()) and bool((out_k[8][moved] % 2 == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ticks", "traffic"])
+def test_tick_kernel_partial_last_block_on_card(cuda_device, kind):
+    """A batch that does not fill the kernel's last block of 32 lanes
+    (4096 + 7) gives, on its first 4096 lanes, the bits the 4096-lane
+    launch gives, and the plain version's result on all of them."""
+    B, n = 4096 + 7, 4096
+    run, plain, args, kw = _tick_case(kind, cuda_device, B=B)
+    out = run(*args, **kw)
+    out_n = run(*first_lanes(args, B, n), **first_lanes(kw, B, n))
+    out_p = plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(tensors_of(out), tensors_of(out_n)):
+        assert torch.equal(a[:n], b)
+    (assert_tick_bar if kind == "ticks" else assert_traffic_bar)(out, out_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ticks", "traffic"])
+def test_tick_kernel_pid_window_and_derivative_on_card(cuda_device, kind):
+    """ki and kd nonzero, from a half-full PID buffer, a planned speed 0.1
+    m/s above each ego's (so that the throttle does not saturate) and a
+    separation threshold of 5 km/h: the kernel sums its error ring oldest
+    first, the plain version with ``buffer.sum``, so the bar is the float
+    one (rtol 1e-5 / atol 5 mm, decisions and PID counts identical). The
+    window and the derivative change the run."""
+    cfg = dataclasses.replace(CFG, control=dataclasses.replace(
+        CFG.control, ki=0.5, kd=0.05, integral_sep_threshold=5.0))
+    run, plain, args, kw = _tick_case(kind, cuda_device, cfg)
+    B, NB = args[1].shape
+    rng = np.random.default_rng(5)
+    args = list(args)
+    args[5] = (torch.hypot(args[0].vx, args[0].vy) + 0.1)[:, None].expand_as(
+        args[5]).contiguous()
+    args[1] = t32(rng.uniform(-0.8, 0.8, (B, NB)), cuda_device)
+    args[2] = torch.full((B,), NB // 2, dtype=torch.int32, device=cuda_device)
+    args[3] = t32(rng.uniform(-0.8, 0.8, B), cuda_device)
+    out_k = run(*args, **kw)
+    out_p = plain(*args, **kw)
+    out_0 = run(*args[:-1], CFG, **kw)
+    torch.cuda.synchronize()
+    assert_metrics_match(closed_loop.TickMetrics(*out_k[6], None),
+                         closed_loop.TickMetrics(*[np_of(a) for a in out_p[6]], None),
+                         TICK_FIELDS, "pid.")
+    assert torch.equal(out_k[2], out_p[2])
+    np.testing.assert_allclose(np_of(out_k[1]), np_of(out_p[1]), atol=5e-3)
+    assert not torch.equal(out_k[6][2], out_0[6][2])
+
+
+_SINCOS_SRC = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+__device__ __noinline__ float ref_sin(float x) { return sinf(x); }
+__device__ __noinline__ float ref_cos(float x) { return cosf(x); }
+__device__ __noinline__ void pair(float x, float* s, float* c) { sincosf(x, s, c); }
+// every float of magnitude bits below `n` (both signs): sincosf against sinf
+// and cosf, bit for bit
+__global__ void count(unsigned n, unsigned long long* bad) {
+  unsigned long long local = 0;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    for (unsigned sign = 0; sign < 2; ++sign) {
+      const float x = __uint_as_float(i | (sign << 31));
+      float s, c;
+      pair(x, &s, &c);
+      local += (__float_as_uint(s) != __float_as_uint(ref_sin(x))) +
+               (__float_as_uint(c) != __float_as_uint(ref_cos(x)));
+    }
+  }
+  atomicAdd(bad, local);
+}
+extern "C" int sincos_mismatches(unsigned n, unsigned long long* bad) {
+  count<<<1024, 256>>>(n, bad);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_sincosf_equals_sinf_cosf_on_card(cuda_device, tmp_path):
+    """The tick kernel takes the sine and cosine of one angle with sincosf;
+    the plain version takes them with torch.sin and torch.cos (sinf and
+    cosf). Built with the tick kernel's flags, sincosf gives the bits of sinf
+    and cosf for every float32 of magnitude up to 105615 (the argument
+    reduction's fast range), subnormals and zeros included: every heading,
+    path angle and steer angle of a cycle lies in that range."""
+    import ctypes
+    import subprocess
+
+    from emplanner_carla_tpu_torch import cuda as kbuild
+
+    src, lib = tmp_path / "sincos.cu", tmp_path / "libsincos.so"
+    src.write_text(_SINCOS_SRC)
+    subprocess.run([kbuild._nvcc(), *kbuild._BASE_FLAGS, *kbuild.SOURCES["tick_lqr"][1],
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).sincos_mismatches
+    fn.argtypes = [ctypes.c_uint, ctypes.c_void_p]
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    limit = int(np.array(105615.0, np.float32).view(np.uint32)) + 1
+    assert fn(limit, ctypes.c_void_p(bad.data_ptr())) == 0
+    assert int(bad) == 0
+    # the angles of a closed-loop cycle lie in the range held above
+    sc = scenario.batch_scenarios(5, 16, CFG, device=cuda_device, n_path=96)
+    _, m = closed_loop.simulate(*sc, CFG, device=cuda_device)
+    for a in (m.heading, sc.global_path.theta):
+        assert float(a.abs().max()) <= 105615.0
+

@@ -39,6 +39,29 @@ def np_of(t):
     return t.detach().cpu().numpy()
 
 
+def first_lanes(x, B: int, n: int):
+    """The first n lanes of every batch-major (B, ...) tensor in x (nested
+    tuples, NamedTuples, dicts); everything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x[:n].contiguous() if x.dim() and x.shape[0] == B else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[first_lanes(v, B, n) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(first_lanes(v, B, n) for v in x)
+    if isinstance(x, dict):
+        return {k: first_lanes(v, B, n) for k, v in x.items()}
+    return x
+
+
+def tensors_of(x):
+    """Every tensor in x (nested tuples, NamedTuples, lists), in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from tensors_of(v)
+
+
 def assert_metrics_match(m_port, m_jax, fields, label=""):
     """The closed loop's equivalence bar (``__graft_entry__._assert_metrics_match``):
     bool/int channels identical; float channels within rtol 1e-5 and a
