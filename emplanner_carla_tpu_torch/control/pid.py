@@ -31,7 +31,9 @@ def pid_core(buffer, count, last, error, cfg: ControlConfig):
     """One PID tick on (B, n_buf) buffers and (B,) rows. Returns
     (cmd, buffer', count', error). With ``ki == 0`` the window is not
     summed, with ``kd == 0`` no derivative is taken: their terms are 0, the
-    tick kernel's choice (for finite errors the same command)."""
+    tick kernel's choice. For finite errors the command is the same; a NaN
+    in the window, which the always-summing JAX PID turns into a NaN
+    command, does not reach it."""
     buffer = torch.cat([buffer[:, 1:], error[:, None]], 1)
     count = torch.clamp(count + 1, max=cfg.pid_buffer)
 

@@ -851,6 +851,7 @@ __global__ void __launch_bounds__(THREADS, 1) tick_kernel(TickArgs a) {
         sum += ring[(r >= NB ? r - NB : r) * LANES];
       }
       integral = sum * F[F_PID_DT];
+      __syncwarp(gm);  // every read done before thread 0 writes the next tick's
     }
     if (have_two && use_deriv) deriv = (err - last) / F[F_PID_DT];
     if (fabsf(err) > F[F_SEP]) {

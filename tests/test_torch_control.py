@@ -366,3 +366,27 @@ def test_pid_core_matches_jax(ki, kd):
         np.testing.assert_array_equal(np_of(cmd_t), np.asarray(cmd_j)[0])
     else:
         np.testing.assert_allclose(np_of(cmd_t), np.asarray(cmd_j)[0], rtol=1e-6, atol=1e-6)
+
+
+def test_pid_core_skipped_window_keeps_nan_out():
+    """With ki = kd = 0, ``pid_core`` (and the tick kernel with it) sums no
+    window and takes no derivative, so a NaN error in the window does not
+    reach the command: it is kp * error. The JAX PID always sums, and its
+    0 * NaN makes the command NaN for as long as the NaN stays in the
+    window. This is where the port departs from the JAX package."""
+    jc = dataclasses.replace(JC, control=dataclasses.replace(JC.control, ki=0.0, kd=0.0))
+    tc = convert.config_from_dict(dataclasses.asdict(jc))
+    nb = jc.control.pid_buffer
+    buf = np.full((2, nb), 0.5, np.float32)
+    buf[:, nb - 3] = np.nan
+    count = np.full(2, nb, np.int32)
+    last = np.array([0.2, np.nan], np.float32)
+    err = np.array([0.4, -0.7], np.float32)
+    cmd_t, buf_t, cnt_t, _ = t_pid.pid_core(t32(buf), torch.as_tensor(count), t32(last),
+                                            t32(err), tc.control)
+    np.testing.assert_array_equal(np_of(cmd_t), np.float32(jc.control.kp) * err)
+    assert np.isnan(np_of(buf_t)[:, nb - 4]).all()
+    np.testing.assert_array_equal(np_of(cnt_t), count)
+    cmd_j, *_ = j_pid.pid_core(jnp.asarray(buf.T), jnp.asarray(count[None]),
+                               jnp.asarray(last[None]), jnp.asarray(err[None]), jc.control)
+    assert np.isnan(np.asarray(cmd_j)).all()

@@ -53,6 +53,29 @@ def test_tick_table_and_mpc_limits():
         closed_loop.check_tick_kernel_limits(12, 60, 300, nu=16)
 
 
+@pytest.mark.parametrize("n_tab,nu,np_fit", [(128, 0, 832), (64, 12, 512)])
+def test_tick_target_path_limit(n_tab, nu, np_fit):
+    """The lanes' target paths are staged in shared memory beside the PID
+    rings and the tables: up to 832 nodes under LQR and 512 under MPC at
+    nu 12 fit a block, one node more raises, naming the path nodes."""
+    closed_loop.check_tick_kernel_limits(12, 60, n_tab, nu, NP=np_fit)
+    with pytest.raises(ValueError, match=f"{np_fit + 1} path nodes"):
+        closed_loop.check_tick_kernel_limits(12, 60, n_tab, nu, NP=np_fit + 1)
+
+
+@pytest.mark.parametrize("n_tab,nu,static,dynamic", [
+    (128, 0, 12_288, 10_240),
+    # the one-float LQR table an MPC block declares, which ptxas drops
+    (64, 12, 8_192 + 4, 10_240 + 89_088),
+])
+def test_tick_kernel_smem_at_main_path_shapes(n_tab, nu, static, dynamic):
+    """tick_kernel_smem at the main paths' 25-node target paths against the
+    kernel's own count: its static arrays (PID rings; the LQR gain table)
+    and dyn_floats (the MPC tables, the target paths, the lerped Minv and
+    v), the figures ptxas and the launch report on the card."""
+    assert closed_loop.tick_kernel_smem(n_tab, nu, 25) == static + dynamic
+
+
 @pytest.mark.parametrize("K,cfg,match", [
     (9, CFG.speed, "1..8 segment slots"),
     (4, dataclasses.replace(CFG.speed, n_t=33), "2..32 columns"),
