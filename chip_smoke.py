@@ -17,11 +17,14 @@ Phases (any failure exits non-zero and prints no result line):
    version's (CUDA events), and the least time the card could take:
    - from ``simulate`` (config 3): the warm QP at the path site (x, x_s, z
      at rtol 1e-4 / atol 1e-4, the dual y within 1% of its magnitude), the
-     path-DP obstacle costs (bit for bit) and the tick loop (bool channels
-     identical, floats within rtol 1e-5 / atol 5 mm);
+     path-DP obstacle costs (bit for bit; also its device time with no
+     obstacle valid, ``dead_ms``, the write-and-launch floor) and the tick
+     loop (bool channels identical, floats within rtol 1e-5 / atol 5 mm);
    - from ``simulate_full`` (config 5): the speed DP (stations, validity and
      terminal column identical), also on bench config 1's two-segment set
-     tiled to the batch, and the warm QP at the speed site (as at the path
+     tiled to the batch, each with its device time on the kernel's first
+     block alone (one lane, ``chain_ms``) and with every segment invalid
+     (``dead_ms``), and the warm QP at the speed site (as at the path
      site but at atol 1e-3, the equality rows' dual held by the next
      solve, see ``_check_qp``);
    - from ``simulate_full`` with two traffic lights a lane: the tick loop's
@@ -104,7 +107,8 @@ _EXTRA = ("y_max_abs_err", "candidates_in_window", "speed_columns_read",
           "live_triples", "lanes_capped", "input", "admm_lane_ticks",
           "admm_lane_ticks_plain", "live_agent_lane_ticks",
           "scanned_actor_lane_ticks", "bit_exact", "bound_fp32_ms",
-          "tile_lanes", "blocks", "smem_bytes", "chain_ms", "inputs_digest")
+          "tile_lanes", "blocks", "smem_bytes", "chain_ms", "inputs_digest", "dead_ms",
+          "window_samples")
 # lanes of the tick kernel's single-chain timing: one block of the kernel
 CHAIN_LANES = 32
 
@@ -393,6 +397,11 @@ def _check_path_obs(captured):
         obs_s, obs_l, obs_valid, ps, pcfg)
     call_ms = _time_ms(k2, 50)
     ms = _device_ms(k2, 50, call_ms)
+    # the write-and-launch floor: no obstacle valid
+    none = torch.zeros_like(obs_valid)
+    k2_d = lambda: t_dp.transition_obstacle_costs_kernel(  # noqa: E731
+        obs_s, obs_l, none, ps, pcfg)
+    dead_ms = _device_ms(k2_d, 50, _time_ms(k2_d, 50))
     plain_ms = _time_ms(lambda: t_dp._transition_obstacle_costs_torch(
         obs_s, obs_l, obs_valid, ps, pcfg), 5)
     # work this run's data needs: every (lane, slot, candidate) in window
@@ -416,7 +425,7 @@ def _check_path_obs(captured):
         source="emplanner_carla_tpu_torch/csrc/path_obs.cu",
         replaces="emplanner_carla_tpu/ops/path_obs_pallas.py:47",
         max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=None, candidates_in_window=n_ok)
+        bound_by=by, library_ms=None, candidates_in_window=n_ok, dead_ms=dead_ms)
 
 
 def _tick_bar(name, out_k, out_p):
@@ -662,28 +671,47 @@ def _check_cold_qp(captured, site, atol):
         **_qp_layout(solver, q))
 
 
-def _speed_dp_live(seg, cfg):
-    """(live (lane, column, segment) triples of the transitions, live
-    (lane, segment) pairs of the start column): the obstacle work the
-    kernel does for this input, by the same exact time-gap gate."""
+def _speed_dp_work(seg, cfg):
+    """The obstacle work this input needs, by the kernel's exact gates (a
+    sample outside its segment's ``st_gate_window`` costs exactly 0):
+    (live (lane, column, segment) triples of the transitions, interior
+    samples inside a live segment's window, endpoint samples inside it,
+    start-column samples inside it)."""
     import torch
 
+    from emplanner_carla_tpu_torch.planner import speed_planner as t_sp
+
+    dev = seg.t_in.device
     t0 = cfg.t_step
-    ts = (torch.arange(cfg.n_t - 1, dtype=torch.float32, device=seg.t_in.device)
-          + 1.0) * cfg.t_step
+    ts = (torch.arange(cfg.n_t - 1, dtype=torch.float32, device=dev) + 1.0) * cfg.t_step
     gap = torch.maximum(seg.t_in[:, None, :] - (ts + cfg.t_step)[None, :, None],
                         ts[None, :, None] - seg.t_out[:, None, :])
-    live = seg.valid[:, None, :] & (gap < cfg.obs_danger_dist)
+    live = seg.valid[:, None, :] & (gap < cfg.obs_danger_dist)      # (B, C, K)
     live0 = seg.valid & (torch.maximum(seg.t_in - t0, -seg.t_out) < cfg.obs_danger_dist)
-    return int(live.sum()), int(live0.sum())
+    lo, hi = t_sp.st_gate_window(seg, cfg)                         # (B, K)
+    g = t_sp._grid(cfg, str(dev))
+    sg, frac = g.s_grid, g.frac
+
+    def inside(s):                          # (B, K) samples of s (n,) in the window
+        return (~t_sp.st_sample_skipped(s[None, None, :], lo[..., None],
+                                        hi[..., None])).sum(-1)
+
+    s_mid = (sg[:, None] + (sg[None, :] - sg[:, None]) * frac[1:-1, None, None]).reshape(-1)
+    n_cols = live.sum(1)                                            # (B, K)
+    interior = int((n_cols * inside(s_mid)).sum())
+    endpoint = int((2 * n_cols * inside(sg)).sum())
+    start = int((live0 * inside((sg[None, :] * frac[:, None]).reshape(-1))).sum())
+    return int(live.sum()), interior, endpoint, start
 
 
 def _check_speed_dp(seg, v0, cfg, label):
     """The speed-DP kernel against its plain version: stations, validity and
-    terminal column identical."""
+    terminal column identical; its device time on the input, on its first
+    block alone (one lane) and on the input with every segment invalid."""
     import torch
 
     from emplanner_carla_tpu_torch.planner import speed_planner as t_sp
+    from emplanner_carla_tpu_torch.types import STSegments
 
     out_k = t_sp.speed_dp_kernel(seg, v0, cfg)
     out_p = t_sp._speed_dp_torch(seg, v0, cfg)
@@ -696,17 +724,21 @@ def _check_speed_dp(seg, v0, cfg, label):
     k4 = lambda: t_sp.speed_dp_kernel(seg, v0, cfg)  # noqa: E731
     call_ms = _time_ms(k4, 20)
     ms = _device_ms(k4, 20, call_ms)
-    plain_ms = _time_ms(lambda: t_sp._speed_dp_torch(seg, v0, cfg), 2)
     B, K = seg.valid.shape
-    n_s, n_t, m = cfg.n_s, cfg.n_t, cfg.n_edge_samples
-    triples, pairs = _speed_dp_live(seg, cfg)
+    n = t_sp.DP_BLOCK_LANES
+    seg_1, v0_1 = _first_lanes(seg, B, n), _first_lanes(v0, B, n)
+    k4_1 = lambda: t_sp.speed_dp_kernel(seg_1, v0_1, cfg)  # noqa: E731
+    chain_ms = _device_ms(k4_1, 20, _time_ms(k4_1, 20))
+    dead = STSegments(*seg[:4], torch.zeros_like(seg.valid))
+    k4_d = lambda: t_sp.speed_dp_kernel(dead, v0, cfg)  # noqa: E731
+    dead_ms = _device_ms(k4_d, 20, _time_ms(k4_d, 20))
+    plain_ms = _time_ms(lambda: t_sp._speed_dp_torch(seg, v0, cfg), 2)
+    n_s, n_t = cfg.n_s, cfg.n_t
+    triples, interior, endpoint, start = _speed_dp_work(seg, cfg)
     # recursion: ~8 operations per edge (acceleration, its cost, the sums,
-    # the running minimum); a live (lane, column, segment) adds ~25 per
-    # interior sample on every edge and per endpoint sample on every
-    # station; a live start-column pair ~25 per sample and station
-    flops = (8.0 * B * (n_t - 1) * n_s * n_s
-             + 25.0 * triples * ((m - 2) * n_s * n_s + 2 * n_s)
-             + 25.0 * pairs * m * n_s)
+    # the running minimum); ~25 per obstacle sample inside a live segment's
+    # window (interior, endpoint and start-column samples)
+    flops = 8.0 * B * (n_t - 1) * n_s * n_s + 25.0 * (interior + endpoint + start)
     g = t_sp._grid(cfg, str(v0.device))
     nbytes = 4 * B * 5 * K + _nbytes(v0, g.s_grid, g.dv, g.ref_tr, g.v0e, g.ref0,
                                      out_k.s, out_k.valid, out_k.end_index)
@@ -715,7 +747,8 @@ def _check_speed_dp(seg, v0, cfg, label):
         name="speed_dp", route="cuda", source="emplanner_carla_tpu_torch/csrc/speed_dp.cu",
         replaces="emplanner_carla_tpu/ops/speed_dp_pallas.py:61", max_abs_err=0.0,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None, live_triples=triples, input=label)
+        library_ms=None, live_triples=triples, window_samples=interior + endpoint + start,
+        chain_ms=chain_ms, dead_ms=dead_ms, input=label)
 
 
 def _bench_config1_segments(batch, device):

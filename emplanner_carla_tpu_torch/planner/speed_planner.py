@@ -20,12 +20,17 @@ the same order (association ``cost_prev + (obs + ref + forbidden) + acc`` as
 minor, quotients as IEEE divisions by tensors), so on the card the two agree
 bit for bit. Both skip the obstacle terms of a (lane, column, segment) whose
 pure-time gap to the segment is at least ``obs_danger_dist``: every such
-sample costs exactly zero (the Pallas kernel's gate, :196-199).
+sample costs exactly zero (the Pallas kernel's gate, :196-199). The kernel
+also skips each sample outside its segment's :func:`st_gate_window` (by
+:func:`st_sample_skipped`, which it mirrors), whose cost is exactly zero
+too, and multiplies by ``1 / t_step`` where :func:`_exact_reciprocal` finds
+the product equal to the quotient.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -153,6 +158,91 @@ def _seg_distance(s, t, si, so, ti, to) -> Tensor:
                                   d_perp_sq))
 
 
+# the gate's float margin, relative to the magnitudes of a segment and of the
+# DP's samples: it covers the rounding of their distance (a few float32 ulps
+# of those magnitudes) many times over
+GATE_REL = 1e-4
+
+
+def _gate_scale(cfg: SpeedPlanConfig) -> float:
+    """float32 bound on every DP sample's |s| and |t|: the last station and
+    the last column's end time."""
+    return float(np.maximum(np.float32(cfg.s_grid[-1]),
+                            np.float32(cfg.n_t) * np.float32(cfg.t_step)))
+
+
+def st_gate_window(seg: STSegments, cfg: SpeedPlanConfig):
+    """Per segment (B, K) the station window (lo, hi) outside which a DP
+    sample's obstacle cost is exactly 0: the segment's s range widened by
+    ``obs_danger_dist`` plus a margin of GATE_REL x (1 + the largest of the
+    segment's |s|, |t| and :func:`_gate_scale`). A sample at least that far
+    outside the range lies at least ``obs_danger_dist`` from the segment,
+    and the float32 distance of ``_seg_distance`` (either form) errs by far
+    less than the margin. A segment shorter than the margin gets (-inf, inf):
+    there the distance's 1e-24 regulariser may dominate. NaN inputs give
+    NaN bounds, which skip nothing. ``csrc/speed_dp.cu`` computes the same
+    float32 operations under the same name."""
+    si, so, ti, to = seg.s_in, seg.s_out, seg.t_in, seg.t_out
+    scale = torch.maximum(torch.maximum(torch.maximum(si.abs(), so.abs()),
+                                        torch.maximum(ti.abs(), to.abs())),
+                          torch.tensor(_gate_scale(cfg), dtype=torch.float32,
+                                       device=si.device))
+    margin = GATE_REL * (1.0 + scale)
+    reach = cfg.obs_danger_dist + margin
+    v3s = so - si
+    v3t = to - ti
+    short = (v3s * v3s + v3t * v3t) < margin * margin
+    lo = torch.where(short, -float("inf"), torch.minimum(si, so) - reach)
+    hi = torch.where(short, float("inf"), torch.maximum(si, so) + reach)
+    return lo, hi
+
+
+def st_sample_skipped(s: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """True where a sample at station ``s`` lies outside the segment's
+    window from :func:`st_gate_window`: its obstacle cost is exactly 0."""
+    return (s < lo) | (s > hi)
+
+
+def _exact_reciprocal(dt: float) -> bool:
+    """Whether x * (1 / dt) equals x / dt for every float32 x: float32 dt is
+    a power of two whose reciprocal is a normal float32 (then both round the
+    same exact value)."""
+    d = np.float32(dt)
+    if not np.isfinite(d) or d <= 0:
+        return False
+    mant, _ = math.frexp(float(d))
+    inv = np.float32(1.0) / d
+    return bool(mant == 0.5 and np.isfinite(inv) and inv >= np.finfo(np.float32).tiny)
+
+
+def _sqrt_threshold(d: float) -> float:
+    """The least float32 x whose float32 square root is >= float32(d): for
+    float32 x >= 0 (and NaN), ``sqrt(x) < d`` equals ``x < threshold``, since
+    the correctly rounded square root is monotone."""
+    d = np.float32(d)
+    x = d * d
+    while np.sqrt(x) >= d and x > 0:
+        x = np.nextafter(x, np.float32(0))
+    while np.sqrt(x) < d:
+        x = np.nextafter(x, np.float32(np.inf))
+    return float(x)
+
+
+def _interior_distance(v1s, c1, c2, c3, c4, v3s, v3t, nrm, inv) -> Tensor:
+    """``_seg_distance`` of an interior edge sample with its time-only terms
+    (c1 = v1t^2, c2 = v2t^2, c3 = v1t v3s, c4 = v1t v3t) and its segment's
+    terms (v3, nrm = |v3|^2 + 1e-24, inv = 1 / nrm) hoisted, v1s = s_in - s."""
+    d1_sq = v1s * v1s + c1
+    v2s = v1s + v3s
+    d2_sq = v2s * v2s + c2
+    cross = v1s * v3t - c3
+    d_perp_sq = cross * cross * inv
+    p1 = v1s * v3s + c4
+    p2 = p1 + nrm
+    endpoint = (p1 > 0) == (p2 > 0)
+    return torch.sqrt(torch.where(endpoint, torch.minimum(d1_sq, d2_sq), d_perp_sq))
+
+
 def _fold(acc, term):
     return term if acc is None else acc + term
 
@@ -221,19 +311,10 @@ def _edge_obs_tensors(seg: STSegments, cfg: SpeedPlanConfig):
             c3 = (v1t * v3s[:, k, None])[:, :, None, None]
             c4 = (v1t * v3t[:, k, None])[:, :, None, None]
             v1s = (si[:, k, None, None] - s_mid)[:, None]            # (B, 1, k, j)
-            w3s = v3s[:, k, None, None, None]
-            w3t = v3t[:, k, None, None, None]
-            d1_sq = v1s * v1s + c1
-            v2s = v1s + w3s
-            d2_sq = v2s * v2s + c2
-            cross = v1s * w3t - c3
-            d_perp_sq = cross * cross * inv[:, k, None, None, None]
-            p1 = v1s * w3s + c4
-            p2 = p1 + nrm[:, k, None, None, None]
-            endpoint = (p1 > 0) == (p2 > 0)
-            d = torch.sqrt(torch.where(endpoint, torch.minimum(d1_sq, d2_sq),
-                                       d_perp_sq))                   # (B, C, k, j)
-            cost_c = _fold(cost_c, cost(d, live[:, :, k, None, None]))
+            d = _interior_distance(
+                v1s, c1, c2, c3, c4,
+                *(a[:, k, None, None, None] for a in (v3s, v3t, nrm, inv)))
+            cost_c = _fold(cost_c, cost(d, live[:, :, k, None, None]))  # (B, C, k, j)
     if cost_c is not None:
         obs_tr = obs_tr + cost_c
     return obs0, obs_tr
@@ -317,10 +398,12 @@ def _speed_dp_torch(seg: STSegments, v0: Tensor,
                          end_col.to(torch.int32))
 
 
-# the speed-DP kernel's limits (csrc/speed_dp.cu): segment slots, stations,
-# columns and interior samples an edge; its shared-memory rows also need
-# 5 * K and (n_edge_samples - 2) * K to fit in n_s
+# the speed-DP kernel's limits (csrc/speed_dp.cu, whose launcher checks the
+# same): segment slots, stations, columns and interior samples an edge, with
+# 5 * K and (n_edge_samples - 2) * K at most n_s
 DP_K_MAX, DP_NS_MAX, DP_NT_MAX, DP_Q_MAX = 8, 64, 32, 8
+# lanes a block of the kernel holds
+DP_BLOCK_LANES = 1
 
 
 def check_dp_kernel_limits(K: int, cfg: SpeedPlanConfig) -> None:
@@ -337,10 +420,26 @@ def check_dp_kernel_limits(K: int, cfg: SpeedPlanConfig) -> None:
             f"columns, {q} interior samples")
 
 
+@lru_cache(maxsize=None)
+def _kernel_constants(cfg: SpeedPlanConfig):
+    """(the kernel's float parameters, whether 1 / t_step is exact)."""
+    exact = _exact_reciprocal(cfg.t_step)
+    fparams = (
+        cfg.t_step, cfg.w_accel, cfg.accel_penalty * cfg.w_accel,
+        cfg.accel_min, cfg.accel_max, cfg.w_obs, cfg.obs_collision_dist,
+        cfg.obs_danger_dist, _log_w(cfg), cfg.obs_collision_dist + 1.0, BIG,
+        float(np.float32(1.0) / np.float32(cfg.t_step)) if exact else 0.0,
+        _sqrt_threshold(cfg.obs_collision_dist), _sqrt_threshold(cfg.obs_danger_dist),
+        _gate_scale(cfg), GATE_REL,
+    )
+    return fparams, exact
+
+
 def speed_dp_kernel(seg: STSegments, v0: Tensor,
                     cfg: SpeedPlanConfig) -> SpeedDPResult:
     """Launch ``csrc/speed_dp.cu``: the whole DP (obstacle edge costs, the
-    column recursion, termination and backtrack) in one kernel. Raises
+    column recursion, termination and backtrack) in one kernel, one block a
+    lane. Raises
     ``ValueError`` past the kernel's limits (checked first) or for a tensor
     of the wrong dtype, shape or device."""
     dev = v0.device
@@ -363,13 +462,9 @@ def speed_dp_kernel(seg: STSegments, v0: Tensor,
     end = torch.empty((B,), dtype=torch.int32, device=dev)
     ptrs = [seg_in, v0, g.s_grid, g.dv, g.ref_tr, g.v0e, g.ref0, s_out, valid, end]
     p_arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
-    fparams = [
-        cfg.t_step, cfg.w_accel, cfg.accel_penalty * cfg.w_accel,
-        cfg.accel_min, cfg.accel_max, cfg.w_obs, cfg.obs_collision_dist,
-        cfg.obs_danger_dist, _log_w(cfg), cfg.obs_collision_dist + 1.0, BIG,
-    ]
+    fparams, exact = _kernel_constants(cfg)
     f_arr = (ctypes.c_float * len(fparams))(*fparams)
-    i_arr = (ctypes.c_int * 5)(B, K, n_s, n_t, cfg.n_edge_samples)
+    i_arr = (ctypes.c_int * 6)(B, K, n_s, n_t, cfg.n_edge_samples, int(exact))
     fn = cuda.function("speed_dp", "speed_dp", (ctypes.c_void_p,) * 4)
     err = fn(p_arr, f_arr, i_arr, cuda.stream_of(v0))
     cuda.check(err, "speed_dp")

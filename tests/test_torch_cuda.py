@@ -176,6 +176,41 @@ def test_k2_kernel_equals_plain_on_card(cuda_device):
     assert torch.equal(a, b)  # bit for bit
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_edge_samples,safe_dist", [(12, 10, 6.0), (3, 7, 6.0),
+                                                         (12, 10, 3.0)])
+def test_k2_all_slots_valid_at_the_window_edges_on_card(cuda_device, rows, n_edge_samples,
+                                                        safe_dist):
+    """All 8 obstacle slots valid, placed so that their candidate edges fall
+    on and just beside the DP window's edges (the first and last transition
+    columns, the floor boundaries of (r + safe) / h and the n_lo bound), at
+    lateral offsets across the rows: bit for bit against the plain version,
+    at the main path's 12 rows and 10 samples, at 3 rows and 7 samples (the
+    kernel's instantiation for any sample count, 5 lanes a warp) and with a
+    safe distance below the danger distance (an empty band)."""
+    pc = dataclasses.replace(CFG.path, rows=rows, n_edge_samples=n_edge_samples,
+                             safe_dist=safe_dist)
+    h, safe = float(pc.sample_s), float(pc.safe_dist)
+    span = h * (pc.n_edge_samples - 1) / pc.n_edge_samples
+    rng = np.random.default_rng(3)
+    B, K = 257, 8
+    ps = rng.uniform(-5, 5, B)
+    edges = np.array([h - safe, 2 * h - safe, (pc.cols - 1) * h - safe,
+                      pc.cols * h - safe, safe + span, h + safe + span,
+                      (pc.cols - 1) * h + safe + span, 0.0])
+    jitter = rng.choice([-1e-3, 0.0, 1e-3], (B, K)) * rng.uniform(0.5, 1, (B, K))
+    obs_s = ps[:, None] + edges[None, :] + jitter
+    obs_l = rng.uniform(-9, 9, (B, K))
+    valid = np.ones((B, K), bool)
+    args = (t32(obs_s, cuda_device), t32(obs_l, cuda_device),
+            torch.as_tensor(valid, device=cuda_device), t32(ps, cuda_device))
+    a = path_dp.transition_obstacle_costs(*args, pc)
+    b = path_dp._transition_obstacle_costs_torch(*args, pc)
+    torch.cuda.synchronize()
+    assert bool((a > 0).any()) and bool((a >= pc.w_collision).any())
+    assert torch.equal(a, b)  # bit for bit
+
+
 def _tick_args(device, cfg=CFG, B=64, displace=False):
     """One cycle's tick inputs from the port's own first plan cycle, with
     a bad plan, an arrived lane and a destination within reach; with
@@ -257,7 +292,7 @@ def _random_segments(B, K, device, seed=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [2, 4])
 def test_k4_kernel_equals_plain_on_card(cuda_device, K):
-    B = 203  # not a multiple of the kernel's 8 lanes a block
+    B = 203  # any batch: the kernel holds one lane a block
     seg, v0 = _random_segments(B, K, cuda_device)
     sp = CFG.speed
     before = speed_planner.launches["speed_dp"]
@@ -270,6 +305,184 @@ def test_k4_kernel_equals_plain_on_card(cuda_device, K):
     assert torch.equal(out_k.s, out_p.s)
     ends = out_k.end_index
     assert bool((ends < sp.n_t - 1).any()) and bool((ends == sp.n_t - 1).any())
+
+
+def _assert_dp_equal(out_k, out_p):
+    assert torch.equal(out_k.end_index, out_p.end_index.to(torch.int32))
+    assert torch.equal(out_k.valid, out_p.valid)
+    assert torch.equal(out_k.s, out_p.s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4097])
+def test_k4_kernel_any_batch_on_card(cuda_device, B):
+    """One lane alone and a batch of 4096 + 1 lanes: the lanes of the larger
+    batch give the bits of the same lanes run as a batch of 203."""
+    seg, v0 = _random_segments(B, 2, cuda_device, seed=11)
+    out_k = speed_planner.speed_dp(seg, v0, CFG.speed)
+    _assert_dp_equal(out_k, speed_planner._speed_dp_torch(seg, v0, CFG.speed))
+    n = min(B, 203)
+    sub = STSegments(*(a[:n].contiguous() for a in seg))
+    out_n = speed_planner.speed_dp(sub, v0[:n].contiguous(), CFG.speed)
+    torch.cuda.synchronize()
+    assert torch.equal(out_n.s, out_k.s[:n]) and torch.equal(out_n.end_index, out_k.end_index[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_k4_ties_go_to_the_lowest_predecessor_on_card(cuda_device, blocked):
+    """Without reference-speed and acceleration weights every forward edge of
+    an obstacle-free column costs the same, so each station's totals tie
+    across every slice of its thread group: the first minimum, the lowest
+    predecessor, must win (k = 0, or with a segment standing on the first
+    stations, the lowest station past its window), as in the plain version."""
+    sp = dataclasses.replace(CFG.speed, w_ref_speed=0.0, w_accel=0.0)
+    B = 64
+    rng = np.random.default_rng(5)
+    if blocked:
+        s_in = np.zeros((B, 2))
+        s_out = s_in + rng.uniform(0.0, 0.5, (B, 2))
+        t_in, t_out = np.zeros((B, 2)), np.full((B, 2), 8.0)
+        valid = np.tile([True, False], (B, 1))
+    else:
+        s_in = s_out = t_in = t_out = np.zeros((B, 2))
+        valid = np.zeros((B, 2), bool)
+    seg = STSegments(*(t32(a, cuda_device) for a in (s_in, s_out, t_in, t_out)),
+                     torch.as_tensor(valid, device=cuda_device))
+    v0 = t32(rng.uniform(3, 14, B), cuda_device)
+    out_k = speed_planner.speed_dp(seg, v0, sp)
+    out_p = speed_planner._speed_dp_torch(seg, v0, sp)
+    torch.cuda.synchronize()
+    _assert_dp_equal(out_k, out_p)
+    s = out_k.s[:, :-1]
+    if blocked:
+        # the lowest station past the segment's window, in a later slice than
+        # the stations that tie with it
+        assert bool((s > 2.0).all()) and bool((s == s[:, :1]).all())
+    else:
+        # station 0 in every column, then the s_max row's tie at the last
+        assert bool((s == 0.0).all()) and bool((out_k.s[:, -1] == sp.s_grid[-1]).all())
+
+
+@pytest.mark.cuda
+def test_k4_nan_and_inf_lanes_on_card(cuda_device):
+    """Lanes whose plan-start speed is NaN (every total NaN: k 0 stays) or
+    +-inf (every total +inf: the lowest k), and lanes with a NaN, an infinite
+    or a point segment, against the plain version."""
+    seg, v0 = _random_segments(64, 2, cuda_device, seed=7)
+    v0 = v0.clone()
+    v0[::4] = float("nan")
+    v0[1::4] = float("inf")
+    v0[2::4] = -float("inf")
+    seg = STSegments(*(a.clone() for a in seg))
+    seg.s_in[3::8, 0] = float("nan")
+    seg.t_out[5::8, 1] = float("inf")
+    seg.s_out[7::8, 0] = seg.s_in[7::8, 0]
+    seg.t_out[7::8, 0] = seg.t_in[7::8, 0]
+    seg.valid[3::8, 0] = seg.valid[5::8, 1] = seg.valid[7::8, 0] = True
+    out_k = speed_planner.speed_dp(seg, v0, CFG.speed)
+    out_p = speed_planner._speed_dp_torch(seg, v0, CFG.speed)
+    torch.cuda.synchronize()
+    _assert_dp_equal(out_k, out_p)
+
+
+_ARGMIN_SRC = r"""
+#include "{src}"
+// each block: one case of n totals, one thread group of the speed-DP
+// kernel's width running its first-minimum step and group combine
+__global__ void cases(const float* totals, int n, float* v, int* k) {
+  const int t = threadIdx.x;
+  float best = INFINITY;
+  int bk = NO_K;
+  for (int i = 0; t + G * i < n; ++i)
+    first_min_step(totals[blockIdx.x * n + t + G * i], t + G * i, i == 0 && t == 0, best, bk);
+  group_argmin(best, bk, G);
+  if (t == 0) { v[blockIdx.x] = best; k[blockIdx.x] = bk; }
+}
+extern "C" int first_minima(const float* totals, int n_cases, int n, float* v, int* k) {
+  cases<<<n_cases, G>>>(totals, n, v, k);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def _serial_first_min(row):
+    """The plain rule over ascending k: take k if k == 0 or total < best."""
+    best, bk = row[0], 0
+    for k in range(1, len(row)):
+        if row[k] < best:
+            best, bk = row[k], k
+    return best, bk
+
+
+@pytest.mark.cuda
+def test_k4_group_first_minimum_equals_the_serial_rule_on_card(cuda_device, tmp_path):
+    """The speed-DP kernel's per-thread first-minimum step and its group
+    combine (built from csrc/speed_dp.cu with its flags) against the serial
+    rule, on 40 totals a case: ties across and within slices, NaN at k = 0
+    (it stays) and at k > 0 (never taken), +inf and -0 / +0."""
+    import ctypes
+    import subprocess
+
+    from emplanner_carla_tpu_torch import cuda as kbuild
+
+    rng = np.random.default_rng(13)
+    n, rows = 40, []
+    for _ in range(4000):
+        row = rng.choice([0.0, 1.0, 2.0, 3.0, 4.0], n).astype(np.float32)
+        kind = rng.integers(0, 6)
+        if kind == 1:
+            row[0] = np.nan
+        elif kind == 2:
+            row[rng.integers(1, n, 3)] = np.nan
+        elif kind == 3:
+            row[:] = np.inf
+            row[rng.integers(0, n, 2)] = rng.choice([np.inf, 5.0], 2)
+        elif kind == 4:
+            row[rng.integers(0, n, 5)] = -0.0
+        elif kind == 5:
+            row[0] = np.nan
+            row[rng.integers(1, n, 3)] = -1.0
+        rows.append(row)
+    totals = np.stack(rows)
+    src, lib = tmp_path / "argmin.cu", tmp_path / "libargmin.so"
+    src.write_text(_ARGMIN_SRC.replace("{src}", str(kbuild.CSRC / "speed_dp.cu")))
+    subprocess.run([kbuild._nvcc(), *kbuild._BASE_FLAGS, *kbuild.SOURCES["speed_dp"][1],
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).first_minima
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    t = torch.as_tensor(totals, device=cuda_device)
+    v = torch.empty(len(rows), device=cuda_device)
+    k = torch.empty(len(rows), dtype=torch.int32, device=cuda_device)
+    assert fn(t.data_ptr(), len(rows), n, v.data_ptr(), k.data_ptr()) == 0
+    want = [_serial_first_min(r) for r in rows]
+    np.testing.assert_array_equal(np_of(k), [w[1] for w in want])
+    got_v = np_of(v)
+    want_v = np.array([w[0] for w in want], np.float32)
+    assert np.array_equal(got_v.view(np.uint32), want_v.view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n_edge_samples,n_t,t_step", [
+    (1, 2, 16, 0.5), (1, 10, 16, 0.5), (8, 2, 16, 0.5), (8, 7, 16, 0.5),
+    (2, 5, 2, 0.5), (2, 5, 32, 0.25), (2, 5, 16, 0.3), (4, 5, 16, 0.3)])
+def test_k4_generic_instantiation_at_the_limits_on_card(cuda_device, K, n_edge_samples,
+                                                         n_t, t_step):
+    """Shapes at the edges of ``check_dp_kernel_limits`` (1 and 8 segment
+    slots, 0 and 8 interior samples, 2 and 32 columns; 8 slots take at most
+    5 interior samples at 40 stations) and the main shapes with an inexact
+    1 / t_step (0.3: the IEEE division) run the kernel's generic
+    instantiation; bit for bit against the plain version."""
+    sp = dataclasses.replace(CFG.speed, n_edge_samples=n_edge_samples, n_t=n_t,
+                             t_step=t_step)
+    speed_planner.check_dp_kernel_limits(K, sp)
+    assert speed_planner._exact_reciprocal(t_step) == (t_step != 0.3)
+    seg, v0 = _random_segments(97, K, cuda_device, seed=17)
+    out_k = speed_planner.speed_dp(seg, v0, sp)
+    out_p = speed_planner._speed_dp_torch(seg, v0, sp)
+    torch.cuda.synchronize()
+    _assert_dp_equal(out_k, out_p)
 
 
 @pytest.mark.cuda

@@ -253,3 +253,89 @@ def test_densify_merge_and_speed_at_match_jax(stages):
         ref = jax.vmap(lambda tr: j_traj.speed_at(tr, jnp.float32(t)))(
             jax.tree.map(jnp.asarray, jt))
         _close(t_traj.speed_at(traj, t), ref, f"speed_at({t})", atol=1e-5)
+
+
+def test_st_gate_skips_only_exact_zeros():
+    """``st_sample_skipped`` on 300k seeded (sample, segment) pairs: segments
+    of every orientation and scale, short, vertical, horizontal and point
+    ones, samples over the DP's range and within 1e-4 of the window's edges.
+    Every skipped pair's plain obstacle cost is exactly 0, by both distance
+    forms the DP uses (``_seg_distance`` and the hoisted interior form);
+    a segment shorter than the margin skips nothing, nor does a NaN one."""
+    rng = np.random.default_rng(0)
+    n = 300_000
+    f32 = np.float32
+    kind = rng.integers(0, 6, n)
+    si = rng.uniform(-100, 300, n).astype(f32)
+    ds = np.select([kind == 0, kind == 1], [0.0, rng.uniform(-1e-3, 1e-3, n)],
+                   rng.uniform(-40, 40, n))
+    ti = rng.uniform(-3, 10, n).astype(f32)
+    dtt = np.select([kind == 2, kind == 1], [0.0, rng.uniform(-1e-3, 1e-3, n)],
+                    rng.uniform(0, 8, n))
+    seg = STSegments(*(torch.as_tensor(a) for a in (si, (si + ds).astype(f32), ti,
+                                                    (ti + dtt).astype(f32))),
+                     torch.ones(n, dtype=torch.bool))
+    lo, hi = t_sp.st_gate_window(seg, SP_T)
+    edge = rng.integers(0, 3, n)
+    near = rng.uniform(-1e-4, 1e-4, n)
+    s = np.where(edge == 1, np_of(lo) + near,
+                 np.where(edge == 2, np_of(hi) + near, rng.uniform(0, 54.5, n)))
+    s = torch.as_tensor(np.clip(s, 0.0, 54.5).astype(f32))
+    t = torch.as_tensor(rng.uniform(0.0, 8.0, n).astype(f32))
+    skip = t_sp.st_sample_skipped(s, lo, hi)
+    v3s, v3t = seg.s_out - seg.s_in, seg.t_out - seg.t_in
+    nrm = (v3s * v3s + v3t * v3t) + 1e-24
+    v1t, v2t = seg.t_in - t, seg.t_out - t
+    forms = {
+        "direct": t_sp._seg_distance(s, t, seg.s_in, seg.s_out, seg.t_in, seg.t_out),
+        "interior": t_sp._interior_distance(seg.s_in - s, v1t * v1t, v2t * v2t, v1t * v3s,
+                                            v1t * v3t, v3s, v3t, nrm,
+                                            torch.full_like(nrm, 1.0) / nrm),
+    }
+    for name, d in forms.items():
+        cost = t_sp._collision_cost(d, SP_T)
+        assert not bool((skip & (cost != 0)).any()), name
+        assert float(d[skip].min()) >= SP_T.obs_danger_dist, name
+    assert int(skip.sum()) > n // 2
+    assert int((skip & torch.as_tensor(edge > 0)).sum()) > n // 10
+    short = (v3s * v3s + v3t * v3t) < (1e-4 * 55.5) ** 2
+    assert bool(short.any()) and not bool(skip[short].any())
+    nan_seg = STSegments(*(torch.tensor([x]) for x in (float("nan"), 10.0, 1.0, 2.0)),
+                         torch.tensor([True]))
+    lo_n, hi_n = t_sp.st_gate_window(nan_seg, SP_T)
+    assert not bool(t_sp.st_sample_skipped(torch.tensor([0.0, 54.5]), lo_n, hi_n).any())
+
+
+@pytest.mark.parametrize("dt", [0.5, 0.25, 1.0, 2.0, 0.125, 2.0 ** -20, 0.3])
+def test_exact_reciprocal_check(dt):
+    """The speed-DP kernel multiplies by 1 / t_step where the host finds it
+    exact: for a power-of-two t_step x * (1 / dt) == x / dt on random
+    float32 x (subnormal, huge and signed ones too); 0.3 is refused."""
+    exact = t_sp._exact_reciprocal(dt)
+    assert exact == (dt != 0.3)
+    if not exact:
+        return
+    rng = np.random.default_rng(1)
+    bits = rng.integers(0, 2 ** 32, 200_000, dtype=np.uint64).astype(np.uint32)
+    x = torch.as_tensor(bits.view(np.float32))
+    x = x[torch.isfinite(x)]
+    d = torch.full_like(x, dt)
+    prod = x * (torch.ones_like(x) / d)
+    quot = x / d
+    assert torch.equal(prod.view(torch.int32), quot.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [0.5, 1.5, 0.3, 2.7])
+def test_sqrt_threshold_orders_like_the_root(d):
+    """``sqrt(x) < d`` equals ``x < _sqrt_threshold(d)`` for float32 x >= 0 and
+    NaN: the kernel compares squared distances with the collision and danger
+    thresholds this way."""
+    thr = np.float32(t_sp._sqrt_threshold(d))
+    rng = np.random.default_rng(2)
+    x = np.concatenate([rng.uniform(0, 4 * d * d, 100_000),
+                        float(thr) * (1 + rng.uniform(-1e-6, 1e-6, 10_000)),
+                        [0.0, float(thr), np.nan, np.inf]]).astype(np.float32)
+    x = np.concatenate([x, np.nextafter(thr, np.float32(0)) + np.zeros(1, np.float32)])
+    got = torch.as_tensor(x) < float(thr)
+    want = torch.sqrt(torch.as_tensor(x)) < float(np.float32(d))
+    assert torch.equal(got, want)
