@@ -59,21 +59,38 @@ Phases (any failure exits non-zero and prints no result line):
      kernel-vs-scan traffic bar (the tick bar; NPC indices, lane targets and
      decisions identical, lane offsets within 1e-5, NPC positions and
      velocities within 1e-3), with the live agent (lane, tick) pairs;
+   - on new input distributions, printed beside the kernel lines and not in
+     the JSON line: K1 at both sites, K2, K4 and the tick kernel on the
+     third plan cycle of config 6 (routed roads: junction arcs, padded
+     tails) and of config 8 (obstacles estimated from the camera), each at
+     its bar above;
 3. end to end, each main path with every launch counter taken from zero
    just before it and read just after, and with the plain tick loops made
    to raise: ``simulate`` at config 3, ``simulate_full`` at configs 5 and 4
    and ``simulate_traffic`` at config 7 (batch 4096, 20 plans x 100 ticks,
-   256-point paths), five timed runs each, finite metrics, collisions,
-   lateral RMSE and the median cycles/s; then once each ``simulate_full``
-   with the traffic lights, config 4 on the kinematic plant, config 5 on the
-   dynamic plant and config 4 with the feedforward MPC and two plant steps a
-   tick, and ``simulate_traffic`` with the traffic lights, with walkers and
-   under MPC + the dynamic bicycle; then bench config 1 (standalone S-T DP +
-   cold speed QP, solves/s) and config 2 (open-loop path plan, plans/s),
-   five timed runs each;
+   256-point paths), ``simulate_full`` at config 6 (fleets routed by
+   ``scenario.routed_scenarios_device`` over ``grid_town_curved``) and
+   ``pixel_loop.simulate_pixels`` at config 8 (full EM on the camera's
+   estimates; also its mean tracked count and perception error, and its
+   collisions beside the JAX package's recorded 0/4096, a finding), five
+   timed runs each, finite metrics, collisions, lateral RMSE and the median
+   cycles/s; then once each ``simulate_full`` with the traffic lights,
+   config 4 on the kinematic plant, config 5 on the dynamic plant and
+   config 4 with the feedforward MPC and two plant steps a tick,
+   ``simulate_traffic`` with the traffic lights, with walkers and under MPC
+   + the dynamic bicycle, and ``simulate_pixels`` path-only; then bench
+   config 1 (standalone S-T DP + cold speed QP, solves/s), config 2
+   (open-loop path plan, plans/s) and config 6b (4096 device route queries
+   over ``grid_town_curved``, A* + backtracking + stitching to 256 points,
+   routes/s, no kernel launched, with the reached share), five timed runs
+   each; then once the test_9 drive (``scenario.test9_scenario``,
+   ``simulate_traffic`` under MPC + the dynamic bicycle, 5 plans: lateral
+   RMSE, collisions);
 4. device equivalence: ``simulate``, ``simulate_full`` (with and without
-   lights), ``simulate_full`` at config 4 and ``simulate_traffic`` at config
-   7 on 128 scenarios x 2 plans with ``device="cuda"`` and ``device="cpu"``;
+   lights), ``simulate_full`` at configs 4 and 6, ``simulate_traffic`` at
+   config 7 and ``simulate_pixels`` (full EM, path-only, and path-only on
+   the rendered frame) on 128 scenarios x 2 plans with ``device="cuda"``
+   and ``device="cpu"``; config 6b's route engine on 128 pairs, identical;
 5. the script's wall time, a ``{"kernels": [...]}`` JSON line, then the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -111,6 +128,15 @@ _EXTRA = ("y_max_abs_err", "candidates_in_window", "speed_columns_read",
           "window_samples")
 # lanes of the tick kernel's single-chain timing: one block of the kernel
 CHAIN_LANES = 32
+# bench config 6 routes its fleet with seed 2 and config 6b draws its queries
+# with seed 7 (bench_all.py:127,142); stitched routes are padded to 256 points
+ROUTED_SEED = 2
+ROUTE_QUERY_SEED = 7
+ROUTE_PAD = 256
+# plan cycles of the test_9 drive (tests/test_town05.py:58-83)
+TEST9_PLANS = 5
+# bench config 8 drives batch_scenarios with seed 3 (bench_all.py:181)
+PIXEL_SEED = 3
 
 
 def _card_line() -> str:
@@ -765,6 +791,32 @@ def _bench_config1_segments(batch, device):
     return STSegments(*f, valid.contiguous()), torch.full((batch,), 10.0, device=device)
 
 
+def _check_new_inputs(run, cfg, eq, label):
+    """K1 at both sites, K2, K4 and the tick kernel against their plain
+    versions at their bars on the third plan cycle of a main path that feeds
+    them a new input distribution (``run(cfg)`` drives it)."""
+    cap = _capture_cycle(run, cfg, n_plans=3)
+    (seg, v0, _), _ = cap["speed_dp_kernel"]
+    out = [_check_qp(cap, "qp_admm_warm", "emplanner_carla_tpu/ops/qp_pallas.py:41"),
+           _check_qp(cap, "qp_admm_speed", "emplanner_carla_tpu/ops/qp_pallas.py:41", eq),
+           _check_path_obs(cap),
+           _check_speed_dp(seg, v0, cfg.speed, label),
+           _check_ticks(cfg, cap, "tick_lqr", "emplanner_carla_tpu/ops/tick_pallas.py:72")]
+    for e in out:
+        e["input"] = label
+    return out
+
+
+def _route_queries(town, o, d, pad_to):
+    """Bench config 6b's query (``bench_all.py:146-149``): device A* and
+    backtracking, then stitching, for (origins, destinations) (B,). Returns
+    (route, valid, reached, x, y, n_valid, options)."""
+    from emplanner_carla_tpu_torch.routing import astar
+
+    route, valid, reached = astar.route_nodes_device(town, o, d)
+    return (route, valid, reached, *astar.stitch_route_device(town, route, valid, pad_to))
+
+
 def _print_entry(e):
     print(f"kernel {e['name']}: max_abs_err {e['max_abs_err']:.3g}, "
           f"kernel {e['ms']:.4f} ms (per call with its wrapper "
@@ -891,7 +943,9 @@ def main() -> int:
     from emplanner_carla_tpu_torch import cuda as kbuild
     from emplanner_carla_tpu_torch.config import EMConfig, mpc_feedforward_variant
     from emplanner_carla_tpu_torch.planner import speed_planner
-    from emplanner_carla_tpu_torch.sim import closed_loop, scenario
+    from emplanner_carla_tpu_torch.routing import astar
+    from emplanner_carla_tpu_torch.routing import graph as graph_mod
+    from emplanner_carla_tpu_torch.sim import closed_loop, pixel_loop, scenario
     from emplanner_carla_tpu_torch.types import tree_to
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -936,6 +990,22 @@ def main() -> int:
         *sc, c, behavior="normal", full=True, lights=lights, device="cuda")
     sim7w = lambda c: closed_loop.simulate_traffic(  # noqa: E731
         *sc_w, c, behavior="normal", full=True, device="cuda")
+    # bench config 6 (bench_all.py:123-133): simulate_full on fleets routed by
+    # the device A* over grid_town_curved; the test_9 drive (tests/
+    # test_town05.py:58-83): simulate_traffic on the recorded Town05 route
+    # under MPC + the dynamic bicycle
+    town = graph_mod.grid_town_curved()
+    rs6 = scenario.routed_scenarios_device(ROUTED_SEED, BATCH, cfg, town=town,
+                                           device="cuda")
+    sim6 = lambda c: closed_loop.simulate_full(*rs6.scenario, c, device="cuda")  # noqa: E731
+    # bench config 8 (bench_all.py:172-190): the pixel loop, full EM on the
+    # camera's estimates (the column view), and its path-only mode
+    sc8 = scenario.batch_scenarios(PIXEL_SEED, BATCH, cfg, device="cuda")
+    sim8 = lambda c: pixel_loop.simulate_pixels(*sc8, c, full=True, device="cuda")  # noqa: E731
+    sim8p = lambda c: pixel_loop.simulate_pixels(*sc8, c, device="cuda")  # noqa: E731
+    sc9, _ = scenario.test9_scenario(cfg, device="cuda")
+    sim9 = lambda c: closed_loop.simulate_traffic(  # noqa: E731
+        *sc9, c, behavior="normal", device="cuda")
 
     # ---- per-kernel phase, on the third plan cycle of each path: in the
     # first, no obstacle reaches the path DP (the parked cars lie beyond the
@@ -985,7 +1055,11 @@ def main() -> int:
                                ("tick_traffic_mpc_dynamic", sim7, cfg4, 555)):
         entries[name] = _check_traffic(c, _capture_cycle(run, c, n_plans=3), name,
                                        f"emplanner_carla_tpu/ops/tick_pallas.py:{line}")
-    for e in (*entries.values(), fixed, saturated):
+    # the kernels on new input distributions, config 6's third cycle: routed
+    # curvature (junction arcs, padded tails); printed, not in the JSON line
+    extra = [fixed, saturated, *_check_new_inputs(sim6, cfg, eq, "config 6 cycle 3"),
+             *_check_new_inputs(sim8, cfg, eq, "config 8 cycle 3")]
+    for e in (*entries.values(), *extra):
         _print_entry(e)
 
     # ---- end-to-end phase: the host-bound cycle's wall varies by tens of
@@ -1000,6 +1074,8 @@ def main() -> int:
         ("simulate_full config 5", sim5, cfg, full + ("tick_lqr",), 5),
         ("simulate_full config 4", sim5, cfg4, full + ("tick_mpc_dynamic",), 5),
         ("simulate_traffic config 7", sim7, cfg, full + ("tick_traffic",), 5),
+        ("simulate_full config 6, routed", sim6, cfg, full + ("tick_lqr",), 5),
+        ("simulate_pixels config 8", sim8, cfg, full + ("tick_lqr",), 5),
         ("simulate_full config 5 + lights", sim5l, cfg, full + ("tick_lqr_lights",), 1),
         ("simulate_full config 4, kinematic plant", sim5, cfg4_kin,
          full + ("tick_mpc_kinematic",), 1),
@@ -1011,14 +1087,21 @@ def main() -> int:
         ("simulate_traffic config 7, walkers", sim7w, cfg, full + ("tick_traffic",), 1),
         ("simulate_traffic config 7, MPC + dynamic bicycle", sim7, cfg4,
          full + ("tick_traffic_mpc_dynamic",), 1),
+        ("simulate_pixels config 8, path-only", sim8p, cfg,
+         ("qp_admm_warm", "path_obs_costs", "tick_lqr"), 1),
     ):
         run(_with_plans(path_cfg, 2))                    # warm-up
         torch.cuda.synchronize()
         expected = {**zero, **{k: n for k in kernels}}
         (_, metrics), walls, counts = _drive(label, lambda: run(path_cfg), expected, reps)
+        pixels = {}
+        if isinstance(metrics, pixel_loop.PixelMetrics):
+            pixels = dict(mean_tracked=float(metrics.n_tracked.float().mean()),
+                          mean_perc_err_m=float(metrics.perc_err.mean()))
+            metrics = metrics.ticks
         assert tuple(metrics.x.shape) == (BATCH, n, cfg.loop.plan_every)
         wall = sorted(walls)[len(walls) // 2]
-        summ = _summary(metrics, closed_loop, BATCH)
+        summ = {**_summary(metrics, closed_loop, BATCH), **pixels}
         cycles_s = BATCH * n / wall
         per_path[label] = dict(wall_s=wall, walls_s=walls, cycles_per_s=cycles_s,
                                ms_per_cycle=wall / n * 1e3, counts=counts, **summ)
@@ -1028,7 +1111,15 @@ def main() -> int:
               f"{summ['collisions']}/{BATCH}, lateral RMSE {summ['lateral_rmse']:.4f} m, "
               f"mean speed {summ['mean_speed_kmh']:.2f} km/h, infeasible "
               f"{summ['infeasible_frac']:.5f}, segments_dropped "
-              f"{summ['segments_dropped']:.0f}, launches {counts}", flush=True)
+              f"{summ['segments_dropped']:.0f}"
+              + "".join(f", {k} {v:.4f}" for k, v in pixels.items())
+              + f", launches {counts}", flush=True)
+    # a finding, not a gate: the JAX package's docstring records 0/4096
+    # collisions for full=True at this scale (on its own hardware)
+    print(f"config 8 collisions, full EM from pixels: port "
+          f"{per_path['simulate_pixels config 8']['collisions']}/{BATCH} on [{card}]; "
+          f"the JAX package records 0/4096 in this mode at this scale "
+          f"(emplanner_carla_tpu/sim/pixel_loop.py:39-41)", flush=True)
     # the open-loop entries of the cold QP: one call is one batch of solves
     for label, fn, kernels, unit in (
         ("config 1 standalone S-T solve", lambda: _config1_run(seg1, v01, cfg),
@@ -1047,6 +1138,46 @@ def main() -> int:
         print(f"{label}: batch {BATCH} in {wall * 1e3:.3f} ms (median of "
               f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms) = {BATCH / wall:.1f} "
               f"{unit} on [{card}]; launches {counts}", flush=True)
+    # bench config 6b (bench_all.py:135-155): the device route engine alone,
+    # 4096 (origin, destination) queries over grid_town_curved, pad 256
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(ROUTE_QUERY_SEED)
+    od = [torch.randint(0, town.n_nodes, (BATCH,), generator=gen).cuda() for _ in range(2)]
+    rq = lambda: _route_queries(town, *od, ROUTE_PAD)  # noqa: E731
+    rq()                                                 # warm-up
+    torch.cuda.synchronize()
+    out, walls, counts = _drive("config 6b device route queries", rq, zero, 5)
+    reached, x6b, n6b = out[2], out[3], out[5]
+    # a routed pair of two nodes stitches at least one edge (o == d: one point)
+    if not bool(torch.isfinite(x6b).all()) \
+            or not bool((n6b[reached & (od[0] != od[1])] >= 2).all()):
+        raise AssertionError("config 6b: stitched routes not finite or empty")
+    wall = sorted(walls)[len(walls) // 2]
+    reached_share = float(reached.float().mean())
+    per_path["config 6b device route queries"] = dict(
+        wall_s=wall, walls_s=walls, per_s=BATCH / wall, unit="routes/s", counts=counts,
+        reached_share=reached_share)
+    print(f"config 6b device route queries: batch {BATCH} (A*, backtrack, stitch to "
+          f"{ROUTE_PAD} points) in {wall * 1e3:.3f} ms (median of "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms) = {BATCH / wall:.1f} "
+          f"routes/s on [{card}]; reached share {reached_share:.4f}, mean route "
+          f"{float(n6b.float().mean()):.1f} points; launches {counts}", flush=True)
+    # the test_9 drive, once: MPC + the dynamic bicycle, the agent NPC
+    cfg9 = _with_plans(cfg4, TEST9_PLANS)
+    sim9(_with_plans(cfg4, 1))                           # warm-up
+    torch.cuda.synchronize()
+    (_, m9), walls, counts = _drive(
+        "test_9 drive", lambda: sim9(cfg9),
+        {**zero, **{k: TEST9_PLANS for k in ("qp_admm_warm", "path_obs_costs",
+                                             "tick_traffic_mpc_dynamic")}}, 1)
+    assert tuple(m9.x.shape) == (1, TEST9_PLANS, cfg.loop.plan_every)
+    summ = _summary(m9, closed_loop, 1)
+    per_path["test_9 drive"] = dict(wall_s=walls[0], counts=counts, **summ)
+    print(f"test_9 drive (test9_scenario, simulate_traffic, MPC + dynamic bicycle): "
+          f"1 x {TEST9_PLANS} plans x {cfg.loop.plan_every} ticks in {walls[0]:.3f} s "
+          f"on [{card}]; collisions {summ['collisions']}/1, lateral RMSE "
+          f"{summ['lateral_rmse']:.4f} m, mean speed {summ['mean_speed_kmh']:.2f} km/h, "
+          f"launches {counts}", flush=True)
     launch_src = {
         "tick_lqr_lights": ("simulate_full config 5 + lights", "tick_lqr_lights"),
         "tick_mpc_dynamic": ("simulate_full config 4", "tick_mpc_dynamic"),
@@ -1084,6 +1215,40 @@ def main() -> int:
         _assert_metrics_match(m_gpu, m_cpu, f"{label} cuda_vs_cpu")
         print(f"device equivalence, {label}: 128 scenarios x 2 plans, cuda == cpu "
               "within rtol 1e-5 / atol 5 mm, decisions identical", flush=True)
+    small6 = scenario.routed_scenarios_device(ROUTED_SEED + 1, 128, cfg, town=town,
+                                              device="cpu").scenario
+    eq_cfg = _with_plans(cfg, 2)
+    _, m_gpu = closed_loop.simulate_full(*small6, eq_cfg, device="cuda")
+    _, m_cpu = closed_loop.simulate_full(*small6, eq_cfg, device="cpu")
+    _assert_metrics_match(m_gpu, m_cpu, "simulate_full config 6 cuda_vs_cpu")
+    print("device equivalence, simulate_full config 6 (routed): 128 scenarios x 2 "
+          "plans, cuda == cpu within rtol 1e-5 / atol 5 mm, decisions identical",
+          flush=True)
+    small8 = scenario.batch_scenarios(PIXEL_SEED + 1, 128, cfg, device="cpu")
+    for label, kw in (("full EM", dict(full=True)), ("path-only", {}),
+                      ("path-only, frame path", dict(columns=False))):
+        _, p_gpu = pixel_loop.simulate_pixels(*small8, eq_cfg, device="cuda", **kw)
+        _, p_cpu = pixel_loop.simulate_pixels(*small8, eq_cfg, device="cpu", **kw)
+        tag = f"simulate_pixels {label} cuda_vs_cpu"
+        _assert_metrics_match(p_gpu.ticks, p_cpu.ticks, tag)
+        if not torch.equal(p_gpu.n_tracked.cpu(), p_cpu.n_tracked):
+            raise AssertionError(f"{tag}: tracked counts differ")
+        if not torch.allclose(p_gpu.perc_err.cpu(), p_cpu.perc_err, rtol=1e-5, atol=5e-3):
+            raise AssertionError(f"{tag}: perception error differs")
+        print(f"device equivalence, simulate_pixels config 8 ({label}): 128 scenarios x "
+              f"2 plans, cuda == cpu within rtol 1e-5 / atol 5 mm, decisions and tracked "
+              f"counts identical", flush=True)
+    od_s = [t[:128].cpu() for t in od]
+    r_gpu = (*astar.astar_device(town, *[t.cuda() for t in od_s]),
+             *_route_queries(town, *[t.cuda() for t in od_s], ROUTE_PAD))
+    r_cpu = (*astar.astar_device(town, *od_s), *_route_queries(town, *od_s, ROUTE_PAD))
+    for name, a, b in zip(("parent", "found", "route", "valid", "reached", "x", "y",
+                           "n_valid", "options"), r_gpu, r_cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"config 6b {name} cuda_vs_cpu: "
+                                 f"{int((a.cpu() != b).sum())} differ")
+    print("device equivalence, config 6b: 128 route queries, cuda == cpu: parents, "
+          "routes, n_valid, options, x and y identical", flush=True)
     seg_s, v0_s = _bench_config1_segments(128, "cpu")
     v0_s = v0_s + torch.linspace(-6.0, 4.0, 128)      # other plan-start speeds
     s_gpu = _config1_run(tree_to(seg_s, "cuda"), v0_s.cuda(), cfg).cpu()

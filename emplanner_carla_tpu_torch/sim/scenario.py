@@ -1,7 +1,8 @@
-"""Scenario construction: synthetic roads, ego spawns, obstacle layouts
-(counterpart of ``synthetic_centerline``, ``place_on_path``,
-``make_scenario``, ``_place``, ``lights_on_path`` and ``batch_scenarios`` in
-``emplanner_carla_tpu/sim/scenario.py``).
+"""Scenario construction: synthetic and routed roads, ego spawns, obstacle
+layouts (counterpart of ``emplanner_carla_tpu/sim/scenario.py``:
+``synthetic_centerline``, ``place_on_path``, ``make_scenario``,
+``populate_scenario``, ``_place``, ``lights_on_path``, ``batch_scenarios``,
+``test9_scenario``, ``routed_scenarios`` and ``routed_scenarios_device``).
 
 A road is a curvature-profile centerline: kappa(s) as a sum of smooth
 random bumps, integrated to heading and position. Random draws come from a
@@ -9,7 +10,9 @@ seeded ``torch.Generator`` as unit uniforms (:func:`draw_uniforms`); the
 deterministic rest (:func:`make_scenario_from_uniforms`) maps them into the
 same ranges with the same float32 arithmetic as ``jax.random.uniform``, so
 a test can feed it the JAX package's own unit draws. The two generators
-give different numbers for the same seed.
+give different numbers for the same seed. Routed fleets take their
+(origin, destination) pairs from a seeded generator too, or from the
+caller, and place the same layout along each route's own extent.
 """
 
 from __future__ import annotations
@@ -17,10 +20,13 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from emplanner_carla_tpu_torch.config import EMConfig
 from emplanner_carla_tpu_torch.ops import frenet
+from emplanner_carla_tpu_torch.routing import astar
+from emplanner_carla_tpu_torch.routing import graph as graph_mod
 from emplanner_carla_tpu_torch.sim.traffic_light import TrafficLights
 from emplanner_carla_tpu_torch.types import EgoState, Obstacles, Path, Tensor
 
@@ -107,6 +113,50 @@ def make_scenario_from_uniforms(
     ego at the path start, parked cars in disjoint s bands near the line,
     one slower lead NPC, optionally a crossing pedestrian."""
     gp = synthetic_centerline(u.amp, u.pos, u.width, n_path, path_ds)
+    s_extent = torch.full((u.s.shape[0],), n_path * path_ds, dtype=torch.float32,
+                          device=u.s.device)
+    return _place(PlacementUniforms(u.s, u.l, u.dyn, u.walk), cfg, gp, s_extent,
+                  v0, n_active_static, with_dynamic, npc_speed, with_walker)
+
+
+class PlacementUniforms(NamedTuple):
+    """Unit draws in [0, 1) of an obstacle layout along given paths (the
+    placement fields of ``ScenarioUniforms``)."""
+
+    s: Tensor        # (B, K) obstacle station jitter within its band
+    l: Tensor        # (B, K) obstacle lateral offsets
+    dyn: Tensor      # (B,) lead NPC station
+    walk: Tensor     # (B,) crossing pedestrian station
+
+
+def draw_placement(gen: torch.Generator, batch: int, cfg: EMConfig) -> PlacementUniforms:
+    K = cfg.n_static_obs + cfg.n_dynamic_obs
+    r = lambda *shape: torch.rand(shape, generator=gen, dtype=torch.float32)  # noqa: E731
+    return PlacementUniforms(r(batch, K), r(batch, K), r(batch), r(batch))
+
+
+def populate_scenario_from_uniforms(
+    u: PlacementUniforms,
+    cfg: EMConfig,
+    gp: Path,
+    s_extent: Tensor,
+    v0: float = 8.0,
+    n_active_static: int = 3,
+    with_dynamic: bool = True,
+    npc_speed: float = 30.0 / 3.6,
+    with_walker: bool = False,
+) -> Scenario:
+    """Place the ego and the obstacle layout along given global paths
+    (synthetic or routed), (B, N); ``s_extent`` (B,) the usable arc length
+    of each lane's path."""
+    return _place(u, cfg, gp, s_extent, v0, n_active_static, with_dynamic,
+                  npc_speed, with_walker)
+
+
+def _place(u: PlacementUniforms, cfg: EMConfig, gp: Path, s_extent: Tensor, v0,
+           n_active_static, with_dynamic, npc_speed, with_walker) -> Scenario:
+    """Parked cars in disjoint s bands of each lane's extent (B,), the lead
+    NPC and the optional crossing pedestrian, ego at the path start."""
     B = u.s.shape[0]
     dev = u.s.device
     K = cfg.n_static_obs + cfg.n_dynamic_obs
@@ -114,8 +164,9 @@ def make_scenario_from_uniforms(
     is_static_slot = slot < cfg.n_static_obs
     static_active = slot < n_active_static
 
-    s_extent = torch.tensor(n_path * path_ds, dtype=torch.float32, device=dev)
-    s_max = torch.clamp(s_extent - 100.0, max=300.0)
+    # spread static obstacles over disjoint s bands so they never stack on
+    # the spawn point or each other
+    s_max = torch.clamp(s_extent - 100.0, max=300.0)[:, None]      # (B, 1)
     band = (s_max - 60.0) / max(cfg.n_static_obs, 1)
     obs_s = (
         60.0
@@ -184,3 +235,173 @@ def batch_scenarios(seed: int, batch: int, cfg: EMConfig, device="cuda",
     u = draw_uniforms(gen, batch, cfg)
     u = ScenarioUniforms(*[t.to(device) for t in u])
     return make_scenario_from_uniforms(u, cfg, **kw)
+
+
+def _routed_paths(x: Tensor, y: Tensor, n_valid: Tensor) -> Path:
+    """Global paths (B, pad_to) from stitched route points, the heading and
+    curvature of the padded tail held at the last valid point (repeated end
+    points would give theta = kappa = 0 there)."""
+    gp = frenet.path_from_xy(x, y)
+    idx = torch.minimum(torch.arange(x.shape[1], device=x.device)[None, :],
+                        n_valid.to(torch.int64)[:, None] - 1)
+    return gp._replace(theta=torch.gather(gp.theta, 1, idx),
+                       kappa=torch.gather(gp.kappa, 1, idx))
+
+
+def test9_scenario(cfg: EMConfig, v0: float = 8.0, pad_to: int = 256,
+                   device="cuda"):
+    """The reference's headline scenario (``test_9.py:242-291``), batch 1:
+    the recorded Town05 sub-network (``routing.graph.town05_test9``), the
+    ego routed from the spawn-259 stand-in to the spawn-48 stand-in by host
+    A*, the three parked cars and the BehaviorAgent NPC (30 km/h, on the
+    ego's own road) at the reference's pinned world coordinates. Returns
+    (Scenario of batch 1, n_valid (1,) int32) on ``device`` (the card unless
+    the caller asks for the CPU). Drive it with
+    ``closed_loop.simulate_traffic``."""
+    town = graph_mod.town05_test9()
+    x, y, n_valid, _ = astar.plan_route(
+        town, graph_mod.TEST9_EGO_SPAWN, graph_mod.TEST9_DESTINATION,
+        pad_to=pad_to, with_options=True,
+    )
+    f32 = dict(dtype=torch.float32, device=device)
+    nv = torch.tensor([n_valid], dtype=torch.int32, device=device)
+    gp = _routed_paths(torch.as_tensor(x.astype(np.float32), device=device)[None],
+                       torch.as_tensor(y.astype(np.float32), device=device)[None], nv)
+
+    K = cfg.n_static_obs + cfg.n_dynamic_obs
+    ox, oy, ovx, ovy = (np.zeros(K, np.float32) for _ in range(4))
+    valid = np.zeros(K, bool)
+    statics = graph_mod.TEST9_STATICS
+    if len(statics) > cfg.n_static_obs:
+        raise ValueError("cfg.n_static_obs too small for the fixture")
+    for i, (sx, sy, _yaw) in enumerate(statics):
+        ox[i], oy[i], valid[i] = sx, sy, True
+    d0 = cfg.n_static_obs
+    nx, ny, nspeed = graph_mod.TEST9_NPC
+    ox[d0], oy[d0] = nx, ny
+    ovy[d0] = nspeed                    # the spawn road heads +y
+    valid[d0] = True
+    obstacles = Obstacles(*(torch.as_tensor(a[None], **f32) for a in (ox, oy, ovx, ovy)),
+                          torch.as_tensor(valid[None], device=device))
+    z = torch.zeros(1, **f32)
+    ego0 = EgoState(gp.x[:, 0].clone(), gp.y[:, 0].clone(), gp.theta[:, 0].clone(),
+                    torch.full((1,), v0, **f32), z, z, z, z, z)
+    return Scenario(gp, ego0, obstacles), nv
+
+
+class RoutedScenarios(NamedTuple):
+    """A fleet whose global paths come from A* routes over a road graph."""
+
+    scenario: Scenario      # global_path padded to a fixed length, (B, pad_to)
+    road_option: Tensor     # (B, pad_to) int32 RoadOption per path point
+    n_valid: Tensor         # (B,) int32 valid path-point counts
+
+
+def _populate_routed(x, y, n_valid, options, town, seed, batch, cfg, placement,
+                     device, kw) -> RoutedScenarios:
+    gp = _routed_paths(x, y, n_valid)
+    if placement is None:
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(int(seed))
+        placement = draw_placement(gen, batch, cfg)
+    placement = PlacementUniforms(*[torch.as_tensor(t).to(device) for t in placement])
+    # the graph's resample spacing turns point counts into metres
+    s_extent = n_valid.to(torch.float32) * town.resolution
+    sc = populate_scenario_from_uniforms(placement, cfg, gp, s_extent, **kw)
+    return RoutedScenarios(sc, options, n_valid)
+
+
+def routed_scenarios(seed: int, batch: int, cfg: EMConfig, town=None,
+                     pad_to: int = 256, min_points: int = 120, pairs=None,
+                     placement: PlacementUniforms | None = None, device="cuda",
+                     **kw) -> RoutedScenarios:
+    """Fleet scenarios routed through a town (``grid_town_curved`` by
+    default) by host A* and host stitching (the reference routes the town
+    before every drive, ``test_9.py:295-313``), the layout of
+    ``batch_scenarios`` placed along each route.
+
+    Candidate (origin, destination) node pairs are drawn as
+    ``rng.integers(0, N, 2)`` from ``numpy.random.default_rng(seed)``, or
+    taken in order from ``pairs`` = (origins, destinations); o == d, unroutable pairs and routes of
+    fewer than ``min_points`` points are skipped until ``batch`` are kept.
+    ``placement``: the layout's unit draws, else drawn from a
+    ``torch.Generator`` seeded with ``seed``. Built on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    if town is None:
+        town = graph_mod.grid_town_curved()
+    N = town.n_nodes
+    if pairs is None:
+        rng = np.random.default_rng(int(seed))
+        cand = (rng.integers(0, N, 2) for _ in iter(int, 1))
+    else:
+        cand = zip(*(np.asarray(p).tolist() for p in pairs))
+    route_cache: dict[tuple[int, int], tuple | None] = {}
+    xs, ys, opts, ns = [], [], [], []
+    while len(xs) < batch:
+        try:
+            o, d = next(cand)
+        except StopIteration:
+            raise ValueError(f"only {len(xs)}/{batch} routable pairs in `pairs`") from None
+        if o == d:
+            continue
+        pair = (int(o), int(d))
+        if pair not in route_cache:
+            try:
+                route_cache[pair] = astar.plan_route(
+                    town, tuple(town.nodes_xy[pair[0]]), tuple(town.nodes_xy[pair[1]]),
+                    pad_to=pad_to, with_options=True,
+                )
+            except ValueError:
+                route_cache[pair] = None
+        r = route_cache[pair]
+        if r is None or r[2] < min_points:
+            continue
+        xs.append(r[0])
+        ys.append(r[1])
+        ns.append(r[2])
+        opts.append(r[3])
+    f32 = dict(dtype=torch.float32, device=device)
+    x = torch.as_tensor(np.stack(xs).astype(np.float32), **f32)
+    y = torch.as_tensor(np.stack(ys).astype(np.float32), **f32)
+    n_valid = torch.as_tensor(np.asarray(ns, np.int32), device=device)
+    options = torch.as_tensor(np.stack(opts).astype(np.int32), device=device)
+    return _populate_routed(x, y, n_valid, options, town, seed, batch, cfg,
+                            placement, device, kw)
+
+
+def routed_scenarios_device(seed: int, batch: int, cfg: EMConfig, town=None,
+                            pad_to: int = 256, min_points: int = 120,
+                            oversample: int = 8, pairs=None,
+                            placement: PlacementUniforms | None = None,
+                            device="cuda", **kw) -> RoutedScenarios:
+    """``routed_scenarios`` with the route queries on ``device`` (the card
+    unless the caller asks for the CPU): batched ``astar_device``,
+    backtracking and stitching (``route_nodes_device`` /
+    ``stitch_route_device``) for ``oversample * batch`` candidate pairs at
+    once. The candidates are (origins, destinations), each
+    (oversample * batch,), drawn by ``torch.randint`` from a
+    ``torch.Generator`` seeded with ``seed``, or given as ``pairs``. The
+    first ``batch`` routed, with o != d and at least ``min_points`` points,
+    are kept (only the (n_cand,) selection mask goes to the host); fewer
+    raise ``ValueError``. ``placement`` as in ``routed_scenarios``."""
+    if town is None:
+        town = graph_mod.grid_town_curved()
+    N = town.n_nodes
+    n_cand = oversample * batch
+    if pairs is None:
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(int(seed))
+        pairs = (torch.randint(0, N, (n_cand,), generator=gen),
+                 torch.randint(0, N, (n_cand,), generator=gen))
+    o, d = (torch.as_tensor(np.array(p)).to(device=device, dtype=torch.int32)
+            for p in pairs)
+    route, valid, reached = astar.route_nodes_device(town, o, d)
+    x, y, n, opt = astar.stitch_route_device(town, route, valid, pad_to)
+    ok = reached & (o != d) & (n >= min_points)
+    sel = torch.nonzero(ok.cpu())[:, 0]
+    if sel.numel() < batch:
+        raise ValueError(f"only {sel.numel()}/{batch} routable pairs at oversample="
+                         f"{oversample}; raise oversample")
+    sel = sel[:batch].to(device)
+    return _populate_routed(x[sel], y[sel], n[sel], opt[sel], town, seed, batch, cfg,
+                            placement, device, kw)

@@ -2,10 +2,13 @@
 
 Drives ``closed_loop.simulate_full`` (path + S-T speed planning) at batch
 4096 with 256-point paths on one NVIDIA card, at config 5 (LQR + kinematic
-plant) or, with ``--config 4``, at config 4 (MPC + dynamic bicycle), or,
-with ``--config 7``, ``closed_loop.simulate_traffic`` at config 7 (the full
-EM cycle with NPC agents, normal preset), and prints JSON lines. It breaks
-a cycle down; the end-to-end rate (cycles/s) is ``chip_smoke.py``'s.
+plant) or, with ``--config 4``, at config 4 (MPC + dynamic bicycle), with
+``--config 6`` on fleets routed by the device A* over ``grid_town_curved``,
+with ``--config 7`` ``closed_loop.simulate_traffic`` at config 7 (the full
+EM cycle with NPC agents, normal preset), or with ``--config 8``
+``pixel_loop.simulate_pixels`` (the full EM cycle on the camera's
+estimates), and prints JSON lines. It breaks a cycle down; the end-to-end
+rate (cycles/s) is ``chip_smoke.py``'s.
 
 1. ``device``: from a ``torch.profiler`` trace of an unsynchronised
    2-cycle run, the device events per cycle, the device busy time per
@@ -25,7 +28,7 @@ a cycle down; the end-to-end rate (cycles/s) is ``chip_smoke.py``'s.
 Run from the root of a checkout, on a machine with the card, after
 ``chip_smoke.py`` on the same machine:
 
-    python3 chip_smoke.py --summary e2e.json && python3 profile_port.py --e2e e2e.json [--config 4|7]
+    python3 chip_smoke.py --summary e2e.json && python3 profile_port.py --e2e e2e.json [--config 4|6|7|8]
 
 Imports no JAX. Fails when there is no card or the trace holds no device
 events.
@@ -42,8 +45,12 @@ import subprocess
 import sys
 import time
 
-SEED = 1
 BATCH = 4096
+# chip_smoke.py's seeds and names of each profiled path
+SEEDS = {4: 1, 5: 1, 6: 2, 7: 1, 8: 3}
+PATHS = {4: "simulate_full config 4", 5: "simulate_full config 5",
+         6: "simulate_full config 6, routed", 7: "simulate_traffic config 7",
+         8: "simulate_pixels config 8"}
 N_PLANS = 2
 KERNELS = {"qp_admm (path + speed sites)": "qp_admm_kernel",
            "path_obs_costs": "path_obs_kernel",
@@ -58,9 +65,18 @@ def _stage_targets():
     from emplanner_carla_tpu_torch.planner import (
         path_dp, path_qp, reference_line, speed_planner, trajectory,
     )
-    from emplanner_carla_tpu_torch.sim import closed_loop, perception, plant
+    from emplanner_carla_tpu_torch.sim import (
+        camera, closed_loop, detector, perception, pixel_loop, plant,
+    )
 
     return [
+        (camera, "render_columns", "camera (column view)"),
+        (camera, "render", "camera (frame)"),
+        (detector, "detect_from_columns", "detector"),
+        (detector, "detect", "detector"),
+        (pixel_loop, "update_tracks", "tracker"),
+        (pixel_loop, "estimates", "tracker"),
+        (pixel_loop, "perception_error", "perception_error"),
         (plant, "predict_forward", "predict"),
         (reference_line, "build_reference_line", "reference_line"),
         (frenet, "s_map_from_origin", "frenet"),
@@ -158,16 +174,18 @@ def _busy_us(evs) -> float:
     return total
 
 
-def _run(sc, cfg, traffic: bool):
+def _run(sc, cfg, config: int):
     import torch
 
-    from emplanner_carla_tpu_torch.sim import closed_loop
+    from emplanner_carla_tpu_torch.sim import closed_loop, pixel_loop
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if traffic:
+    if config == 7:
         out = closed_loop.simulate_traffic(*sc, cfg, behavior="normal", full=True,
                                            device="cuda")
+    elif config == 8:
+        out = pixel_loop.simulate_pixels(*sc, cfg, full=True, device="cuda")
     else:
         out = closed_loop.simulate_full(*sc, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -179,9 +197,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--e2e", help="chip_smoke.py --summary output, run just before")
-    ap.add_argument("--config", type=int, choices=(4, 5, 7), default=5,
-                    help="BASELINE config: 5 (LQR, kinematic), 4 (MPC, dynamic) or 7 "
-                         "(NPC agents, LQR, kinematic)")
+    ap.add_argument("--config", type=int, choices=(4, 5, 6, 7, 8), default=5,
+                    help="BASELINE config: 5 (LQR, kinematic), 4 (MPC, dynamic), 6 "
+                         "(routed fleet), 7 (NPC agents) or 8 (driving from pixels)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device; this script runs only on the GPU",
@@ -209,13 +227,15 @@ def main() -> int:
             full, control=dataclasses.replace(full.control, kind="MPC"),
             plant=dataclasses.replace(full.plant, kind="dynamic"))
     cfg = dataclasses.replace(full, loop=dataclasses.replace(full.loop, n_plans=N_PLANS))
-    sc = scenario.batch_scenarios(SEED, BATCH, cfg, device="cuda")
-    traffic = opts.config == 7
-    _run(sc, cfg, traffic)                           # warm-up: allocator, caches
+    if opts.config == 6:
+        sc = scenario.routed_scenarios_device(SEEDS[6], BATCH, cfg, device="cuda").scenario
+    else:
+        sc = scenario.batch_scenarios(SEEDS[opts.config], BATCH, cfg, device="cuda")
+    _run(sc, cfg, opts.config)                       # warm-up: allocator, caches
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        _, p_wall = _run(sc, cfg, traffic)
+        _, p_wall = _run(sc, cfg, opts.config)
     evs = _device_events(prof)
     busy = _busy_us(evs) / N_PLANS
     kern = {k: sum(e.time_range.elapsed_us() for e in evs if sym in e.name) / N_PLANS
@@ -223,9 +243,7 @@ def main() -> int:
     e2e_ms = None
     if opts.e2e:
         with open(opts.e2e) as fh:
-            # chip_smoke.py's name of this path
-            path = f"simulate_{'traffic' if traffic else 'full'} config {opts.config}"
-            e2e_ms = json.load(fh)["paths"][path]["ms_per_cycle"]
+            e2e_ms = json.load(fh)["paths"][PATHS[opts.config]]["ms_per_cycle"]
     print(json.dumps({"config": opts.config, "device": {
         "profiled_ms_per_cycle": p_wall / N_PLANS * 1e3,
         "device_events_per_cycle": len(evs) / N_PLANS,
@@ -237,7 +255,7 @@ def main() -> int:
         "kernel_ms_per_cycle": {k: v / 1e3 for k, v in kern.items()}}}), flush=True)
 
     with _Stages(), profile(activities=acts) as sprof:
-        _, s_wall = _run(sc, cfg, traffic)
+        _, s_wall = _run(sc, cfg, opts.config)
     sevs = _device_events(sprof)
     ranges = [(e.name[len("stage:"):], e.time_range.start, e.time_range.end)
               for e in sprof.events()

@@ -25,8 +25,8 @@ from emplanner_carla_tpu_torch.types import STSegments, tree_to
 from emplanner_carla_tpu_torch.config import mpc_feedforward_variant
 from torch_port_helpers import (  # noqa: F401
     assert_metrics_match, assert_qp_close, assert_tick_bar, assert_traffic_bar,
-    assert_within_roundoff, cuda_device, first_lanes, np_of, t32, tensors_of,
-    warm_ladder_f64,
+    assert_within_roundoff, column_depth_bar, cuda_device, first_lanes, np_of, t32,
+    tensors_of, warm_ladder_f64,
 )
 
 CFG = EMConfig(loop=dataclasses.replace(EMConfig().loop, n_plans=2, plan_every=20))
@@ -899,3 +899,122 @@ def test_sincosf_equals_sinf_cosf_on_card(cuda_device, tmp_path):
     for a in (m.heading, sc.global_path.theta):
         assert float(a.abs().max()) <= 105615.0
 
+
+
+@pytest.mark.cuda
+def test_route_engine_on_card_matches_cpu(cuda_device):
+    """The batched device A*, backtracking and stitching on the card:
+    parents, found, routes, slot masks, reached, n_valid, options and the
+    stitched x / y identical to the CPU run (pad 128 cuts the longest)."""
+    from emplanner_carla_tpu_torch.routing import astar, graph
+
+    town = graph.grid_town_curved()
+    gen = torch.Generator().manual_seed(3)
+    o, d = (torch.randint(0, town.n_nodes, (300,), generator=gen) for _ in range(2))
+    d[0] = o[0]
+
+    def run(dev):
+        oo, dd = o.to(dev), d.to(dev)
+        parent, found = astar.astar_device(town, oo, dd)
+        route, valid, reached = astar.route_nodes_device(town, oo, dd)
+        return (parent, found, route, valid, reached,
+                *astar.stitch_route_device(town, route, valid, 128))
+
+    for a, b in zip(run(cuda_device), run("cpu")):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def _pixel_inputs(B=64, seed=5):
+    """A random camera scene a lane: egos and 12 obstacles ahead of them,
+    some walkers."""
+    from emplanner_carla_tpu_torch.types import EgoState, Obstacles
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    ego = EgoState(*(torch.as_tensor(a.astype(f32)) for a in (
+        rng.uniform(-5, 5, B), rng.uniform(-5, 5, B), rng.uniform(-np.pi, np.pi, B),
+        rng.uniform(0, 10, B), np.zeros(B), rng.uniform(-0.3, 0.3, B), np.zeros(B),
+        np.zeros(B), np.zeros(B))))
+    r, az = rng.uniform(3, 40, (B, 12)), rng.uniform(-0.9, 0.9, (B, 12))
+    phi = ego.phi.numpy()[:, None]
+    obs = Obstacles(
+        torch.as_tensor((ego.x.numpy()[:, None] + r * np.cos(phi + az)).astype(f32)),
+        torch.as_tensor((ego.y.numpy()[:, None] + r * np.sin(phi + az)).astype(f32)),
+        torch.as_tensor(rng.uniform(-3, 3, (B, 12)).astype(f32)),
+        torch.as_tensor(rng.uniform(-3, 3, (B, 12)).astype(f32)),
+        torch.as_tensor(rng.uniform(size=(B, 12)) < 0.7))
+    return ego, obs, torch.as_tensor(rng.uniform(size=(B, 12)) < 0.3)
+
+
+@pytest.mark.cuda
+def test_camera_and_detector_on_card_match_cpu(cuda_device):
+    """``render_columns`` and both detectors on the card against the CPU:
+    column presence and every detection decision identical; the column
+    depth within ``column_depth_bar`` (rtol 1e-5 plus the grazing rays'
+    conditioning: the two devices' sin / cos differ in the last ulp) and
+    within rtol 1e-5 on 95 % of the columns; the frame's classes on 99.9 %
+    of the pixels; the detectors, fed the same views and frames, within
+    rtol 1e-5 (the frame path on a few lanes)."""
+    from emplanner_carla_tpu_torch.sim import camera, detector
+    from emplanner_carla_tpu_torch.types import Path
+
+    ego, obs, walk = _pixel_inputs()
+    cols = {dev: camera.render_columns(tree_to(ego, dev), tree_to(obs, dev),
+                                       is_walker=walk.to(dev))
+            for dev in (cuda_device, "cpu")}
+    present = np_of(cols["cpu"].col)
+    assert np.array_equal(np_of(cols[cuda_device].col), present)
+    layout = ([np_of(a) for a in ego], [np_of(a) for a in obs], np_of(walk))
+    for c in (0, 1):
+        ref = np_of(cols["cpu"].col_d[:, c]).astype(np.float64)
+        err = np.abs(np_of(cols[cuda_device].col_d[:, c]) - ref)
+        bar = column_depth_bar(*layout, ref, bool(c), camera.CameraConfig())
+        p = present[:, c]
+        assert np.all(err[p] <= bar[p]) and np.all(err[~p] == 0.0)
+        assert np.mean(err[p] <= 1e-5 * ref[p]) >= 0.95
+    n = 6
+    gp = Path(torch.arange(128.0).expand(n, 128) * 2.0 - 60.0, torch.zeros(n, 128),
+              torch.zeros(n, 128), torch.zeros(n, 128))
+    ego_n, obs_n = first_lanes(ego, 64, n), first_lanes(obs, 64, n)
+    frame = camera.render(ego_n, gp, obs_n, is_walker=walk[:n], road_classes=False)
+    on_card = camera.render(tree_to(ego_n, cuda_device), tree_to(gp, cuda_device),
+                            tree_to(obs_n, cuda_device), is_walker=walk[:n].to(cuda_device),
+                            road_classes=False)
+    # silhouette-edge pixels decided by a last ulp: a few of a frame at most
+    assert float((on_card.semantic.cpu() == frame.semantic).float().mean()) > 0.999
+    for name, fn in (
+        ("columns", lambda dev: detector.detect_from_columns(
+            camera.ColumnView(*tree_to(cols["cpu"], dev)), tree_to(ego, dev))),
+        ("frame", lambda dev: detector.detect(
+            camera.CameraFrame(*tree_to(frame, dev)), tree_to(ego_n, dev))),
+    ):
+        a, b = fn(cuda_device), fn("cpu")
+        for field, x, y in zip(a._fields, a, b):
+            x = x.cpu()
+            if x.dtype in (torch.bool, torch.int32):
+                assert torch.equal(x, y), f"{name} {field}"
+            else:
+                assert torch.allclose(x, y, rtol=1e-5, atol=1e-5), f"{name} {field}"
+        assert bool(b.valid.any())
+
+
+@pytest.mark.cuda
+def test_simulate_pixels_runs_the_tick_kernel(cuda_device, monkeypatch):
+    """The pixel loop on the card launches ``tick_lqr`` once a plan (its
+    counter rises by n_plans) and never runs the plain tick loop, which is
+    made to raise; its metrics match the CPU run."""
+    from emplanner_carla_tpu_torch.sim import pixel_loop
+
+    sc = scenario.batch_scenarios(2, 8, CFG, device="cpu", n_path=96)
+    _, m_cpu = pixel_loop.simulate_pixels(*sc, CFG, device="cpu")
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain tick loop ran on the card's path")
+
+    monkeypatch.setattr(closed_loop, "_full_ticks_base", refuse)
+    before = closed_loop.launches["tick_lqr"]
+    _, m_gpu = pixel_loop.simulate_pixels(*sc, CFG, device="cuda")
+    torch.cuda.synchronize()
+    assert closed_loop.launches["tick_lqr"] - before == CFG.loop.n_plans
+    assert_metrics_match(tree_to(m_gpu.ticks, "cpu"), m_cpu.ticks, TICK_FIELDS, "pixels.")
+    assert torch.equal(m_gpu.n_tracked.cpu(), m_cpu.n_tracked)

@@ -9,9 +9,13 @@ import subprocess
 import sys
 import tempfile
 
+import math
+
 import numpy as np
 import pytest
 import torch
+
+from emplanner_carla_tpu_torch.sim import camera as t_cam
 
 # The suite runs in several worker processes (pytest-xdist), and each
 # imports every test file. torch's default of one intra-op thread per core
@@ -297,3 +301,33 @@ def run_single_threaded(fn, *args):
             raise RuntimeError(f"child process failed:\n{proc.stderr[-4000:]}")
         with open(dst, "rb") as fh:
             return pickle.load(fh)
+
+
+def column_depth_bar(ego, obs, walk, ref, cls_is_walker, cam):
+    """Allowed |port - ref| of ``camera.render_columns``' depth ``ref`` (B, W)
+    of one class on a layout (ego, obstacles, walker mask as NumPy arrays)
+    seen by camera ``cam``, from the conditioning of its root:
+    d_h = (-Bq - sqrt(disc)) / L, whose
+    relative sensitivity to float32 rounding of the inputs grows as
+    kappa = 1 / (2 sqrt(disc / Bq^2)) at grazing rays. Bar: rtol 1e-5 plus
+    eight unit roundoffs times kappa of the hit slot nearest ``ref``,
+    evaluated in float64 from the same float32 inputs. kappa is about the
+    range over twice the radius on a cylinder's axis (10 at 20 m) and grows
+    without bound at its silhouette edges."""
+    f, cx = (cam.width / 2.0) / math.tan(cam.fov / 2.0), (cam.width - 1) / 2.0
+    a = (cx - np.arange(cam.width)) / f
+    L2 = 1.0 + a * a
+    e = [np.asarray(v, np.float64) for v in ego]
+    cph, sph = np.cos(e[2]), np.sin(e[2])
+    cam_x, cam_y = e[0] + cam.mount_forward * cph, e[1] + cam.mount_forward * sph
+    ux, uy = cph[:, None] - a * sph[:, None], sph[:, None] + a * cph[:, None]
+    rad = np.where(walk, t_cam.WALKER_RADIUS, t_cam.VEHICLE_RADIUS)
+    ox, oy = cam_x[:, None] - obs[0], cam_y[:, None] - obs[1]
+    bq = ux[:, None, :] * ox[:, :, None] + uy[:, None, :] * oy[:, :, None]
+    disc = bq * bq - L2 * (ox * ox + oy * oy - rad * rad)[:, :, None]
+    dh = (-bq - np.sqrt(np.maximum(disc, 0.0))) / L2 * np.sqrt(L2)
+    hit = (disc > 0) & (dh > 0) & obs[4][:, :, None] & (walk == cls_is_walker)[:, :, None]
+    k = np.where(hit, np.abs(dh - ref[:, None, :]), np.inf).argmin(1)[:, None, :]
+    r = np.take_along_axis(np.where(hit, disc / (bq * bq), np.inf), k, 1)[:, 0]
+    kappa = 0.5 / np.sqrt(r)
+    return np.abs(ref) * (1e-5 + 8.0 * 2.0 ** -24 * kappa)
