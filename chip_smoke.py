@@ -86,12 +86,28 @@ Phases (any failure exits non-zero and prints no result line):
    each; then once the test_9 drive (``scenario.test9_scenario``,
    ``simulate_traffic`` under MPC + the dynamic bicycle, 5 plans: lateral
    RMSE, collisions);
-4. device equivalence: ``simulate``, ``simulate_full`` (with and without
+4. the fleet and the utilities: ``parallel.fleet.make_mesh()`` (a one-rank
+   NCCL group on the card; the phase fails if NCCL does not start), then
+   ``fleet_simulate(full=True)`` at config 5 (batch 4096 x 20 x 100, five
+   timed runs, config 5's launch counts; per-scenario metrics identical to
+   the same call's ``simulate_full`` config 5 run, else held at the loop's
+   bar and said so; the six aggregates equal to a float64 host reduction
+   of the metrics, rtol 1e-5, the counts exact), and once each at batch
+   4096 x 2 plans its traffic (config 7, full EM), pixel (config 8, full
+   EM) and path-only modes; ``utils.checkpoint`` save / restore of the
+   config 5 ``LoopCarry`` and the config 7 ``TrafficCarry`` bit for bit on
+   the card, and ``resume_simulation`` of the restored ``TrafficCarry``
+   identical to the in-memory resume; ``utils.report.run_report`` of lane 0
+   and its ``camera_keyframes`` on the card; ``utils.profiling``'s
+   ``sync`` and ``stage_timer`` around one config 5 cycle and a ``trace``
+   of one, which must name the four kernel symbols and the ``annotate``
+   region;
+5. device equivalence: ``simulate``, ``simulate_full`` (with and without
    lights), ``simulate_full`` at configs 4 and 6, ``simulate_traffic`` at
    config 7 and ``simulate_pixels`` (full EM, path-only, and path-only on
    the rendered frame) on 128 scenarios x 2 plans with ``device="cuda"``
    and ``device="cpu"``; config 6b's route engine on 128 pairs, identical;
-5. the script's wall time, a ``{"kernels": [...]}`` JSON line, then the
+6. the script's wall time, a ``{"kernels": [...]}`` JSON line, then the
    last line ``{"ok": true, "device": {...}}``.
 
 ``--summary PATH`` also writes the end-to-end medians there as JSON
@@ -105,6 +121,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -929,6 +946,179 @@ def _config2_run(sc, cfg):
     return em_planner.plan_path_cycle(sc.global_path, sc.ego0, sc.obstacles, mi, cfg)
 
 
+def _host_aggregates(tk):
+    """The six fleet aggregates of TickMetrics (B, n_plans, plan_every),
+    reduced on the host in float64."""
+    import torch
+
+    f64 = lambda a: a.detach().cpu().to(torch.float64)  # noqa: E731
+    lat, B = f64(tk.lateral_err), tk.lateral_err.shape[0]
+    return {
+        "lateral_rmse": float(torch.sqrt((lat * lat).mean())),
+        "mean_speed_kmh": float(f64(tk.speed_kmh).mean()),
+        "collisions": float(tk.collided.reshape(B, -1).any(1).sum()),
+        "n_scenarios": float(B),
+        "infeasible_cycles": float((~tk.feasible[..., 0]).sum()),
+        "segments_dropped": float(tk.segments_dropped[..., 0].sum()),
+    }
+
+
+def _assert_trees_equal(a, b, label, device=None):
+    """Every tensor of two trees equal (and on ``device``, when given)."""
+    import torch
+
+    from emplanner_carla_tpu_torch.types import tree_leaves, tree_map
+
+    # the skeleton's repr names every NamedTuple type and field
+    skeleton = lambda t: repr(tree_map(t, lambda _: 0))  # noqa: E731
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    if skeleton(a) != skeleton(b) or not pairs:
+        raise AssertionError(f"{label}: the trees differ in structure")
+    for i, (x, y) in enumerate(pairs):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{label}: tensor {i} differs")
+        if device is not None and x.device != device:
+            raise AssertionError(f"{label}: tensor {i} on {x.device}, not {device}")
+    return len(pairs)
+
+
+def _fleet_phase(cfg, sc, sc8, m5, zero, per_path, card):
+    """The fleet and the utilities on the card: ``fleet_simulate`` over a
+    one-rank NCCL group at config 5 (five timed runs; metrics identical to
+    ``simulate_full``'s, aggregates equal to a float64 host reduction), its
+    traffic, pixel and path modes once each; checkpoint round trips and a
+    resume; the run report, the camera keyframes, ``sync`` /
+    ``stage_timer`` and a ``trace`` of one cycle."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from emplanner_carla_tpu_torch.parallel import fleet
+    from emplanner_carla_tpu_torch.utils import checkpoint, profiling, report
+
+    t_phase = time.perf_counter()
+    mesh = fleet.make_mesh()
+    if (mesh.backend, mesh.world, mesh.device.type) != ("nccl", 1, "cuda"):
+        raise AssertionError(f"fleet mesh {mesh}: expected one NCCL rank on the card")
+    print(f"fleet mesh: backend {mesh.backend}, world size {mesh.world}, rank "
+          f"{mesh.rank}, device {mesh.device} ({torch.cuda.get_device_name(mesh.device)})",
+          flush=True)
+    n = cfg.loop.n_plans
+    full = ("qp_admm_warm", "qp_admm_speed", "path_obs_costs", "speed_dp")
+    local = fleet.shard_scenarios(sc, mesh)
+    fleet.fleet_simulate(local, _with_plans(cfg, 2), mesh, full=True)   # warm-up
+    torch.cuda.synchronize()
+    label = "fleet_simulate config 5"
+    (m, agg, carry5), walls, counts = _drive(
+        label, lambda: fleet.fleet_simulate(local, cfg, mesh, full=True, return_carry=True),
+        {**zero, **{k: n for k in full + ("tick_lqr",)}}, 5)
+    identical = all(torch.equal(a, b) for a, b in zip(m, m5))
+    if not identical:
+        _assert_metrics_match(m, m5, f"{label} vs simulate_full config 5")
+    agg = {k: float(v) for k, v in agg.items()}
+    host = _host_aggregates(m)
+    for k, v in host.items():
+        exact = k not in ("lateral_rmse", "mean_speed_kmh")
+        if (agg[k] != v) if exact else abs(agg[k] - v) > 1e-5 * abs(v):
+            raise AssertionError(f"{label} {k}: all-reduce {agg[k]}, host {v}")
+    wall = sorted(walls)[len(walls) // 2]
+    per_path[label] = dict(wall_s=wall, walls_s=walls, cycles_per_s=BATCH * n / wall,
+                           ms_per_cycle=wall / n * 1e3, counts=counts,
+                           identical_to_simulate_full=identical, **agg)
+    print(f"{label}: batch {BATCH} x {n} plans x {cfg.loop.plan_every} ticks over one "
+          f"NCCL rank in {wall:.3f} s (median of {', '.join(f'{w:.3f}' for w in walls)} "
+          f"s) = {BATCH * n / wall:.1f} cycles/s on [{card}]; aggregates "
+          + ", ".join(f"{k} {v:.6g}" for k, v in agg.items())
+          + f" (float64 host reduction: rtol 1e-5, counts exact); per-scenario metrics "
+          f"{'identical to' if identical else 'within the loop bar of'} simulate_full "
+          f"config 5; launches {counts}", flush=True)
+
+    c2 = _with_plans(cfg, 2)
+    carries = {}
+    for label, kw, scen, kernels in (
+        ("fleet_simulate config 7 (traffic, full EM)", dict(traffic=True, full=True),
+         sc, full + ("tick_traffic",)),
+        ("fleet_simulate config 8 (pixels, full EM)", dict(pixels=True, full=True),
+         sc8, full + ("tick_lqr",)),
+        ("fleet_simulate path-only", {}, sc,
+         ("qp_admm_warm", "path_obs_costs", "tick_lqr")),
+    ):
+        loc = fleet.shard_scenarios(scen, mesh)
+        (_, ag, carries[label]), walls, counts = _drive(
+            label, lambda: fleet.fleet_simulate(loc, c2, mesh, return_carry=True, **kw),
+            {**zero, **{k: 2 for k in kernels}}, 1)
+        ag = {k: float(v) for k, v in ag.items()}
+        if ag["n_scenarios"] != BATCH or not all(map(math.isfinite, ag.values())):
+            raise AssertionError(f"{label}: aggregates {ag}")
+        print(f"{label}: batch {BATCH} x 2 plans in {walls[0]:.3f} s on [{card}]; "
+              + ", ".join(f"{k} {v:.6g}" for k, v in ag.items())
+              + f"; launches {counts}", flush=True)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        carry7 = carries["fleet_simulate config 7 (traffic, full EM)"]
+        t0 = time.perf_counter()
+        checkpoint.save(os.path.join(tmp, "c5"), carry5)
+        n5 = _assert_trees_equal(checkpoint.restore(os.path.join(tmp, "c5"), carry5),
+                                 carry5, "checkpoint config 5 LoopCarry", mesh.device)
+        checkpoint.save(os.path.join(tmp, "c7"), carry7)
+        r7 = checkpoint.restore(os.path.join(tmp, "c7"), carry7)
+        n7 = _assert_trees_equal(r7, carry7, "checkpoint config 7 TrafficCarry", mesh.device)
+        ck_s = time.perf_counter() - t0
+        res = [checkpoint.resume_simulation(local.global_path, c, c2, n_plans=2, full=True,
+                                            behavior="normal") for c in (carry7, r7)]
+        nr = _assert_trees_equal(res[1], res[0], "resume of the restored TrafficCarry")
+        print(f"checkpoint: config 5 LoopCarry ({n5} tensors) and config 7 TrafficCarry "
+              f"({n7} tensors) of {BATCH} lanes saved and restored bit for bit on "
+              f"{mesh.device} in {ck_s:.3f} s; resume_simulation of the restored "
+              f"TrafficCarry (2 plans, full EM) identical to the in-memory resume "
+              f"({nr} tensors)", flush=True)
+
+        lane0 = type(m)(*[f[0] for f in m])
+        sc0 = _first_lanes(local, BATCH, 1)
+        rep = report.run_report(lane0, cfg)
+        print("run_report, lane 0 of fleet_simulate config 5: " + json.dumps(rep), flush=True)
+        frames = report.camera_keyframes(lane0, sc0, cfg, every=100)
+        n_frames = -(-n * cfg.loop.plan_every // 100)
+        # uint8 pixels are finite by type: the check is that the frames exist
+        # on the card at their shape and are not blank
+        if frames.device.type != "cuda" or frames.dtype != torch.uint8 \
+                or tuple(frames.shape) != (n_frames, 64, 96, 3) or int(frames.max()) == 0:
+            raise AssertionError(f"camera keyframes {tuple(frames.shape)} {frames.dtype}")
+        print(f"camera_keyframes, lane 0 every 100 ticks: {tuple(frames.shape)} "
+              f"{frames.dtype} on {frames.device}, not blank", flush=True)
+
+        c1 = _with_plans(cfg, 1)
+        times = {}
+        with profiling.stage_timer("config 5 cycle", times):
+            out = fleet.fleet_simulate(local, c1, mesh, full=True)
+            checksum = profiling.sync(out)
+        print(f"sync / stage_timer: one config 5 cycle (batch {BATCH}) "
+              f"{times['config 5 cycle'] * 1e3:.3f} ms to the fetched checksum "
+              f"{checksum:.6g} on [{card}]", flush=True)
+        with profiling.trace(os.path.join(tmp, "trace")) as logdir:
+            with profiling.annotate("fleet config 5 cycle"):
+                profiling.sync(fleet.fleet_simulate(local, c1, mesh, full=True))
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace: {len(files)} trace files in {logdir}")
+        with open(files[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        found = {k: sum(k in name for name in kern) for k in
+                 ("qp_admm_kernel", "path_obs_kernel", "speed_dp_kernel", "tick_kernel")}
+        regions = sum(e.get("name") == "fleet config 5 cycle" for e in events)
+        if min(found.values()) == 0 or regions == 0:
+            raise AssertionError(f"trace: kernel events {found}, annotate regions {regions}")
+        print(f"trace of one config 5 cycle: {len(events)} events, {len(kern)} device "
+              f"kernels; hand-written kernel events {found}; annotate region "
+              f"'fleet config 5 cycle' x{regions}", flush=True)
+    torch.distributed.destroy_process_group()
+    print(f"fleet phase wall: {time.perf_counter() - t_phase:.1f} s on [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1094,6 +1284,8 @@ def main() -> int:
         torch.cuda.synchronize()
         expected = {**zero, **{k: n for k in kernels}}
         (_, metrics), walls, counts = _drive(label, lambda: run(path_cfg), expected, reps)
+        if label == "simulate_full config 5":
+            m5 = metrics
         pixels = {}
         if isinstance(metrics, pixel_loop.PixelMetrics):
             pixels = dict(mean_tracked=float(metrics.n_tracked.float().mean()),
@@ -1197,6 +1389,9 @@ def main() -> int:
         path, key = launch_src.get(name, ("simulate_full config 5", name))
         e["launches"] = per_path[path]["counts"][key]
         e["launches_from"] = path
+
+    # ---- fleet and utilities phase ----
+    _fleet_phase(cfg, sc, sc8, m5, zero, per_path, card)
 
     # ---- device equivalence phase ----
     small = scenario.batch_scenarios(SEED + 1, 128, cfg, device="cpu")

@@ -371,6 +371,27 @@ def error_state_model(vx: Tensor, vp: VehicleParams):
     return A, B, C
 
 
+def discretize(A: Tensor, B: Tensor, ts: float):
+    """Bilinear (Tustin) discretization (``controller.py:160-164``): A
+    (..., 4, 4), B (..., 4, 1) -> (A_d, B_d, T)."""
+    require_fp32_matmul(A)
+    eye = torch.eye(4, dtype=A.dtype, device=A.device)
+    T = torch.linalg.inv(eye - 0.5 * ts * A)
+    return T @ (eye + 0.5 * ts * A), T @ B * ts, T
+
+
+def riccati_gain(A_d: Tensor, B_d: Tensor, Q: Tensor, R: Tensor, iters: int) -> Tensor:
+    """K (..., 1, 4) from the discrete Riccati iteration, fixed trip count
+    (``controller.py:457-486``), on batches of (A_d, B_d)."""
+    require_fp32_matmul(A_d)
+    At, Bt = A_d.transpose(-1, -2), B_d.transpose(-1, -2)
+    P = Q.expand(*A_d.shape[:-2], *Q.shape[-2:])
+    for _ in range(iters):
+        BtPB = Bt @ P @ B_d + R
+        P = At @ P @ A_d - (At @ P @ B_d) @ torch.linalg.inv(BtPB) @ (Bt @ P @ A_d) + Q
+    return torch.linalg.inv(Bt @ P @ B_d + R) @ (Bt @ P @ A_d)
+
+
 def mpc_steer_exact(s: EgoState, target: Path, vp: VehicleParams,
                     cfg: ControlConfig):
     """The per-tick-constructed condensed MPC (``controller.py:253-311``):
@@ -387,9 +408,7 @@ def mpc_steer_exact(s: EgoState, target: Path, vp: VehicleParams,
     A, B, C = error_state_model(vx, vp)
     e, kappa, idx = tracking_error(s, target, cfg)
     eye = torch.eye(4, dtype=dt, device=dev)
-    T = torch.linalg.inv(eye - 0.5 * ts * A)
-    A_d = T @ (eye + 0.5 * ts * A)
-    B_d = T @ B * ts                                         # (B, 4, 1)
+    A_d, B_d, T = discretize(A, B, ts)                       # B_d (B, 4, 1)
     C_d = (T @ C) * ts * kappa[:, None, None] * vx[:, None, None]
 
     M_rows = [eye.expand(Bn, 4, 4)]

@@ -1,7 +1,8 @@
 """Prefactored ADMM for constant-matrix QPs (counterpart of
 ``emplanner_carla_tpu/ops/qp.py``: ``prefactor_constants``, the warm and
-cold contracts of ``make_prefactored_qp``, ``warm_zero_state`` and
-``solve_box_qp``).
+cold contracts of ``make_prefactored_qp``, ``warm_zero_state``,
+``solve_box_qp``, the general OSQP-splitting ``solve_qp`` and
+``kkt_residuals``).
 
 For the planner QPs the quadratic form P and the constraint matrix A are
 fixed; only (q, l, u) vary per scenario. Everything matrix-shaped happens
@@ -39,7 +40,8 @@ from emplanner_carla_tpu_torch.types import Tensor
 __all__ = [
     "prefactor_constants", "make_prefactored_qp", "PrefactoredQP",
     "warm_ladder_torch", "warm_admm_kernel", "warm_zero_state", "solve_box_qp",
-    "kernel_layout", "kernel_constants", "check_kernel_limits",
+    "kernel_layout", "kernel_constants", "check_kernel_limits", "solve_qp",
+    "kkt_residuals",
 ]
 
 # the kernel's tile and limits (csrc/qp_admm.cu): 32 lanes a block, n <= 104
@@ -351,3 +353,130 @@ def solve_box_qp(H: Tensor, f: Tensor, lb: Tensor, ub: Tensor, iters: int = 80,
         z = torch.clamp(x + u, lb, ub)
         u = u + x - z
     return z
+
+
+def _mv(M: Tensor, v: Tensor) -> Tensor:
+    return (M @ v[..., None])[..., 0]
+
+
+def _inf_norm(v: Tensor) -> Tensor:
+    return v.abs().amax(-1)
+
+
+def solve_qp(P: Tensor, q: Tensor, A: Tensor, l: Tensor, u: Tensor,
+             iters: int = 120, rho: float = 1.0, sigma: float = 1e-6,
+             rho_eq_scale: float = 1e3, alpha: float = 1.6, rho_updates: int = 4,
+             polish: bool = True) -> Tensor:
+    """General QP by OSQP splitting, min 1/2 x'Px + q'x s.t. l <= Ax <= u,
+    for a batch of problems (the JAX package's ``solve_qp``): q (B, n); P
+    (B, n, n), A (B, m, n), l and u (B, m), each also without the batch
+    axis when the lanes share it. Equality rows (l == u) get rho *
+    ``rho_eq_scale``; over-relaxation ``alpha``. Ruiz equilibration, then
+    ``rho_updates`` phases of ``iters / rho_updates`` ADMM steps with rho
+    rescaled by sqrt of the normalised primal/dual residual ratio between
+    phases, then (``polish``) one exact KKT solve on the active set, kept
+    where it is finite and no less feasible. Plain PyTorch. Returns x
+    (B, n)."""
+    require_fp32_matmul(q)
+    Bn, n = q.shape
+    m = l.shape[-1]
+    P0, A0 = P.expand(Bn, n, n), A.expand(Bn, m, n)
+    l0, u0 = l.expand(Bn, m), u.expand(Bn, m)
+    q0 = q
+    dt, dev = q.dtype, q.device
+    is_eq = (u0 - l0).abs() < 1e-9
+    eye_n = torch.eye(n, dtype=dt, device=dev)
+    inner_iters = max(iters // max(rho_updates, 1), 1)
+
+    # Ruiz equilibration (OSQP sec. 5.1): variables D, rows E, cost c
+    D = torch.ones((Bn, n), dtype=dt, device=dev)
+    E = torch.ones((Bn, m), dtype=dt, device=dev)
+    c = torch.ones((Bn,), dtype=dt, device=dev)
+    for _ in range(10):
+        Ps = c[:, None, None] * (D[:, :, None] * P0 * D[:, None, :])
+        As = E[:, :, None] * A0 * D[:, None, :]
+        col_norm = torch.maximum(Ps.abs().amax(1), As.abs().amax(1))
+        D = D / torch.sqrt(torch.clamp(col_norm, min=1e-8))
+        row_norm = (E[:, :, None] * A0 * D[:, None, :]).abs().amax(2)
+        E = E / torch.sqrt(torch.clamp(row_norm, min=1e-8))
+        Ps = c[:, None, None] * (D[:, :, None] * P0 * D[:, None, :])
+        cost_norm = torch.maximum(Ps.abs().amax(1).mean(-1),
+                                  (c[:, None] * D * q0).abs().amax(-1))
+        c = c / torch.clamp(torch.sqrt(torch.clamp(cost_norm, min=1e-8)), min=1e-4)
+    P = c[:, None, None] * (D[:, :, None] * P0 * D[:, None, :])
+    q = c[:, None] * (D * q0)
+    A = E[:, :, None] * A0 * D[:, None, :]
+    At = A.transpose(1, 2)
+    l, u = E * l0, E * u0
+
+    x = torch.zeros_like(q)
+    z = torch.clamp(torch.zeros_like(l), l, u)
+    y = torch.zeros_like(l)
+    rho_s = torch.full((Bn,), rho, dtype=dt, device=dev)
+    for _ in range(max(rho_updates, 1)):
+        rho_vec = torch.where(is_eq, rho_s[:, None] * rho_eq_scale, rho_s[:, None])
+        K = P + sigma * eye_n + (At * rho_vec[:, None, :]) @ A
+        Kinv = torch.linalg.inv(K)
+        for _ in range(inner_iters):
+            rhs = sigma * x - q + _mv(At, rho_vec * z - y)
+            x = _mv(Kinv, rhs)
+            # one refinement step against the float32 inverse's error
+            x = x + _mv(Kinv, rhs - _mv(K, x))
+            Ax_rel = alpha * _mv(A, x) + (1.0 - alpha) * z
+            z_new = torch.clamp(Ax_rel + y / rho_vec, l, u)
+            y = y + rho_vec * (Ax_rel - z_new)
+            z = z_new
+        # OSQP's rho update: rho *= sqrt(prim_res_norm / dual_res_norm)
+        Ax, Px, Aty = _mv(A, x), _mv(P, x), _mv(At, y)
+        r_prim = _inf_norm(Ax - z)
+        r_dual = _inf_norm(Px + q + Aty)
+        prim_scale = torch.clamp(torch.maximum(_inf_norm(Ax), _inf_norm(z)), min=1e-6)
+        dual_scale = torch.maximum(torch.maximum(_inf_norm(Px), _inf_norm(Aty)),
+                                   torch.clamp(_inf_norm(q), min=1e-6))
+        ratio = (r_prim / prim_scale) / torch.clamp(r_dual / dual_scale, min=1e-12)
+        rho_s = torch.clamp(rho_s * torch.sqrt(ratio), 1e-4, 1e4)
+
+    x = D * x  # un-scale the primal iterate
+    if polish:
+        # in the original problem's space; the duals map back as E y / c
+        x = _polish(P0, q0, A0, l0, u0, x, E * y / c[:, None], sigma)
+    return x
+
+
+def _polish(P, q, A, l, u, x, y, sigma):
+    """OSQP-style polish: one exact KKT solve on the active set (rows with
+    |y| > 1e-6 and every equality row; inactive rows zeroed out of the
+    constraint block, their multipliers pinned to 0 by a unit diagonal),
+    with one refinement pass. Lanes where it is not finite, or violates the
+    constraints by more than 1e-4 beyond the ADMM point, keep x."""
+    n = q.shape[-1]
+    is_eq = (u - l).abs() < 1e-9
+    act_u = (y > 1e-6) | is_eq
+    act_l = (y < -1e-6) & ~is_eq
+    act = act_u | act_l
+    b = torch.where(act_u, u, l)
+    A_m = A * act[:, :, None].to(A.dtype)
+    Dd = torch.where(act, sigma, 1.0).to(q.dtype)
+    eye_n = torch.eye(n, dtype=q.dtype, device=q.device)
+    K = torch.cat([torch.cat([P + sigma * eye_n, A_m.transpose(1, 2)], 2),
+                   torch.cat([A_m, -torch.diag_embed(Dd)], 2)], 1)
+    rhs = torch.cat([-q, torch.where(act, b, 0.0)], 1)
+    sol, info = torch.linalg.solve_ex(K, rhs)
+    fix, info2 = torch.linalg.solve_ex(K, rhs - _mv(K, sol))
+    x_pol = (sol + fix)[:, :n]
+
+    def viol(xx):
+        Ax = _mv(A, xx)
+        return (torch.clamp(Ax - u, min=0.0) + torch.clamp(l - Ax, min=0.0)).amax(-1)
+
+    ok = (info == 0) & (info2 == 0) & torch.isfinite(x_pol).all(-1)
+    ok = ok & (viol(x_pol) <= viol(x) + 1e-4)
+    return torch.where(ok[:, None], x_pol, x)
+
+
+def kkt_residuals(P: Tensor, q: Tensor, A: Tensor, l: Tensor, u: Tensor, x: Tensor):
+    """Primal/dual feasibility diagnostics of a batch of solutions x (B, n):
+    (max constraint violation (B,), gradient P x + q (B, n))."""
+    Ax = _mv(A, x)
+    prim = torch.clamp(Ax - u, min=0.0) + torch.clamp(l - Ax, min=0.0)
+    return prim.abs().amax(-1), _mv(P, x) + q

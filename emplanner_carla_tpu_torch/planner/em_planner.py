@@ -37,6 +37,12 @@ class PathPlanResult(NamedTuple):
     obs_dropped: Tensor  # (B,) int32 in-window slots dropped by dp_top_m
 
 
+def n_target(cfg: EMConfig) -> int:
+    """``PathPlanConfig.n_qp``, the JAX package's target-path length; the
+    planned target has :func:`n_stations` points."""
+    return cfg.path.n_qp
+
+
 def n_stations(cfg: EMConfig) -> int:
     """Number of QP stations after the ::qp_downsample of the enriched DP."""
     L = path_dp.enriched_length(cfg.path)

@@ -237,6 +237,29 @@ def batch_scenarios(seed: int, batch: int, cfg: EMConfig, device="cuda",
     return make_scenario_from_uniforms(u, cfg, **kw)
 
 
+def make_scenario(seed: int, cfg: EMConfig, device="cuda", **kw) -> Scenario:
+    """One randomized scenario, the test_9 layout (:func:`batch_scenarios`'
+    draw at batch 1, keyword arguments as ``make_scenario_from_uniforms``'):
+    every field has a batch axis of 1."""
+    return batch_scenarios(seed, 1, cfg, device=device, **kw)
+
+
+def populate_scenario(seed: int, cfg: EMConfig, gp: Path, s_extent: Tensor,
+                      device="cuda", **kw) -> Scenario:
+    """The ego and the obstacle layout along given global paths (B, N) with
+    usable arc lengths ``s_extent`` (B,), placed from unit draws of a
+    ``torch.Generator`` seeded with ``seed`` (keyword arguments as
+    :func:`populate_scenario_from_uniforms`'), on ``device``."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(seed))
+    u = draw_placement(gen, gp.x.shape[0], cfg)
+    u = PlacementUniforms(*[t.to(device) for t in u])
+    return populate_scenario_from_uniforms(
+        u, cfg, type(gp)(*[f.to(device) for f in gp]),
+        torch.as_tensor(s_extent, dtype=torch.float32, device=device).expand(gp.x.shape[0]),
+        **kw)
+
+
 def _routed_paths(x: Tensor, y: Tensor, n_valid: Tensor) -> Path:
     """Global paths (B, pad_to) from stitched route points, the heading and
     curvature of the padded tail held at the last valid point (repeated end

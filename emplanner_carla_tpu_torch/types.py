@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 Tensor = torch.Tensor
+Array = Tensor  # the JAX package's name for its array type
 
 
 def hypot(a: Tensor, b: Tensor) -> Tensor:
@@ -95,6 +96,15 @@ class Obstacles(NamedTuple):
         return self.x.shape[-1]
 
 
+class SLObstacles(NamedTuple):
+    """Obstacles projected into the Frenet (s, l) frame of a reference
+    line, fields (B, K); ``valid`` is bool."""
+
+    s: Tensor
+    l: Tensor
+    valid: Tensor
+
+
 class STSegments(NamedTuple):
     """S-T occupancy line segments, one slot per dynamic obstacle, each
     field (B, K); ``valid`` is bool."""
@@ -104,6 +114,21 @@ class STSegments(NamedTuple):
     t_in: Tensor
     t_out: Tensor
     valid: Tensor
+
+
+class FrenetState(NamedTuple):
+    """Full Frenet state (s, l and derivatives) of one point a lane, each
+    field (B,): the seven outputs of ``cal_s_l_deri_fun``
+    (``planner/planning_utils.py:512-588``) plus s itself."""
+
+    s: Tensor
+    l: Tensor
+    s_dot: Tensor    # ds/dt
+    l_dot: Tensor    # dl/dt
+    s_ddot: Tensor   # d2s/dt2
+    l_ddot: Tensor   # d2l/dt2
+    l_prime: Tensor  # dl/ds
+    l_pprime: Tensor  # d2l/ds2
 
 
 class Trajectory(NamedTuple):
@@ -120,13 +145,29 @@ class Trajectory(NamedTuple):
     valid: Tensor
 
 
-def tree_to(tree, device):
-    """Move every tensor of a (nested) NamedTuple/tuple to ``device``."""
+def tree_map(tree, fn):
+    """``fn`` over every tensor of a (nested) NamedTuple/tuple; None and
+    other leaves as they are."""
     if isinstance(tree, Tensor):
-        return tree.to(device)
-    if tree is None:
-        return None
+        return fn(tree)
     if isinstance(tree, tuple):
-        items = [tree_to(t, device) for t in tree]
+        items = [tree_map(t, fn) for t in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     return tree
+
+
+def tree_leaves(tree):
+    """Every tensor of a (nested) tuple, NamedTuple, list or dict, in order."""
+    if isinstance(tree, Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for leaf in tree:
+            yield from tree_leaves(leaf)
+    elif isinstance(tree, dict):
+        for leaf in tree.values():
+            yield from tree_leaves(leaf)
+
+
+def tree_to(tree, device):
+    """Move every tensor of a (nested) NamedTuple/tuple to ``device``."""
+    return tree_map(tree, lambda t: t.to(device))

@@ -1,0 +1,1 @@
+"""Subpackage of the PyTorch port; see the package docstring."""

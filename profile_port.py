@@ -19,8 +19,11 @@ rate (cycles/s) is ``chip_smoke.py``'s.
    device time of each hand-written kernel (the two QP sites share one
    kernel symbol);
 2. ``stages``: per planner stage, from a second trace in which every stage
-   is bracketed by ``torch.cuda.synchronize()``: host wall, device time and
-   device events per cycle. The synchronisation serialises host and device,
+   is bracketed by ``torch.cuda.synchronize()`` and named by
+   ``utils/profiling.py``'s ``annotate``: host wall, device time and device
+   events per cycle. No checksum runs inside a timed span (``profiling.sync``
+   materialises the scenario before the timed run, and its kernels are left
+   out of the device counts). The synchronisation serialises host and device,
    so these walls add up to more than the unsynchronised cycle; they rank
    the stages, and device time against wall says which are launch-bound;
 3. ``top_ops``: the device events with the most total time.
@@ -43,7 +46,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 BATCH = 4096
 # chip_smoke.py's seeds and names of each profiled path
@@ -109,8 +111,8 @@ def _stage_targets():
 
 
 class _Stages:
-    """Wraps the stage functions so that each outermost call runs in a
-    ``record_function`` range bracketed by device synchronisation."""
+    """Wraps the stage functions so that each outermost call runs in a named
+    range (``profiling.annotate``) bracketed by ``torch.cuda.synchronize()``."""
 
     def __init__(self):
         self.originals = []
@@ -119,13 +121,15 @@ class _Stages:
     def _wrap(self, fn, label):
         import torch
 
+        from emplanner_carla_tpu_torch.utils import profiling
+
         def staged(*args, **kw):
             if self.depth:
                 return fn(*args, **kw)
             self.depth += 1
             try:
                 torch.cuda.synchronize()
-                with torch.profiler.record_function("stage:" + label):
+                with profiling.annotate("stage:" + label):
                     out = fn(*args, **kw)
                     torch.cuda.synchronize()
             finally:
@@ -148,11 +152,17 @@ class _Stages:
 
 
 def _device_events(prof):
+    """The trace's device events, without the annotations and without the
+    checksum kernels of ``profiling.sync`` (the device side of its ``sync``
+    regions)."""
     from torch.autograd import DeviceType
 
-    evs = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-           and not e.name.startswith("stage:")]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    syncs = [(e.time_range.start, e.time_range.end) for e in dev
+             if e.is_user_annotation and e.name == "sync"]
+    evs = [e for e in dev
+           if not e.is_user_annotation and not e.name.startswith("stage:")
+           and not any(s <= e.time_range.start <= t for s, t in syncs)]
     if not evs:
         raise RuntimeError("the profiler trace holds no device events")
     return evs
@@ -178,18 +188,20 @@ def _run(sc, cfg, config: int):
     import torch
 
     from emplanner_carla_tpu_torch.sim import closed_loop, pixel_loop
+    from emplanner_carla_tpu_torch.utils import profiling
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if config == 7:
-        out = closed_loop.simulate_traffic(*sc, cfg, behavior="normal", full=True,
-                                           device="cuda")
-    elif config == 8:
-        out = pixel_loop.simulate_pixels(*sc, cfg, full=True, device="cuda")
-    else:
-        out = closed_loop.simulate_full(*sc, cfg, device="cuda")
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    wall = {}
+    profiling.sync(sc)
+    with profiling.stage_timer("run", wall):
+        if config == 7:
+            out = closed_loop.simulate_traffic(*sc, cfg, behavior="normal", full=True,
+                                               device="cuda")
+        elif config == 8:
+            out = pixel_loop.simulate_pixels(*sc, cfg, full=True, device="cuda")
+        else:
+            out = closed_loop.simulate_full(*sc, cfg, device="cuda")
+        torch.cuda.synchronize()
+    return out, wall["run"]
 
 
 def main() -> int:

@@ -390,3 +390,27 @@ def test_pid_core_skipped_window_keeps_nan_out():
     cmd_j, *_ = j_pid.pid_core(jnp.asarray(buf.T), jnp.asarray(count[None]),
                                jnp.asarray(last[None]), jnp.asarray(err[None]), jc.control)
     assert np.isnan(np.asarray(cmd_j)).all()
+
+
+def test_discretize_and_riccati_gain_match_jax():
+    """The Tustin discretization and the fixed-trip Riccati iteration
+    (``tests/test_control.py``'s inputs, at several speeds) against the JAX
+    package's, batched over the speeds."""
+    vp, cc = JC.vehicle, JC.control
+    tc = convert.config_from_dict(dataclasses.asdict(JC))
+    vxs = np.asarray([2.0, 8.0, 13.9, 25.0], np.float32)
+    Q = np.diag(cc.lqr_q).astype(np.float32)
+    R = np.array([[cc.lqr_r]], np.float32)
+    A_t, B_t, _ = t_lat.error_state_model(torch.as_tensor(vxs), tc.vehicle)
+    Ad_t, Bd_t, T_t = t_lat.discretize(A_t, B_t, cc.ts_discretize)
+    K_t = t_lat.riccati_gain(Ad_t, Bd_t, torch.as_tensor(Q), torch.as_tensor(R),
+                             cc.riccati_iters)
+    assert K_t.shape == (len(vxs), 1, 4)
+    for i, vx in enumerate(vxs):
+        A, Bm, _ = j_lat.error_state_model(jnp.float32(vx), vp)
+        Ad, Bd, T = j_lat.discretize(A, Bm, cc.ts_discretize)
+        K = j_lat.riccati_gain(Ad, Bd, jnp.asarray(Q), jnp.asarray(R), cc.riccati_iters)
+        for name, a, b in (("A_d", Ad_t[i], Ad), ("B_d", Bd_t[i], Bd), ("T", T_t[i], T),
+                           ("K", K_t[i], K)):
+            np.testing.assert_allclose(np_of(a), np.asarray(b), rtol=1e-5, atol=1e-7,
+                                       err_msg=f"{name} at vx {vx}")

@@ -1018,3 +1018,56 @@ def test_simulate_pixels_runs_the_tick_kernel(cuda_device, monkeypatch):
     assert closed_loop.launches["tick_lqr"] - before == CFG.loop.n_plans
     assert_metrics_match(tree_to(m_gpu.ticks, "cpu"), m_cpu.ticks, TICK_FIELDS, "pixels.")
     assert torch.equal(m_gpu.n_tracked.cpu(), m_cpu.n_tracked)
+
+
+@pytest.mark.cuda
+def test_fleet_one_nccl_rank_matches_simulate_full_on_card(cuda_device):
+    """``fleet_simulate`` over the one-rank NCCL group that ``make_mesh``
+    starts on the card: the same per-scenario metrics as ``simulate_full``
+    on the same batch, the aggregates those of a float64 host reduction."""
+    import torch.distributed as dist
+
+    from emplanner_carla_tpu_torch.parallel import fleet
+
+    sc = scenario.batch_scenarios(5, 64, CFG, device=cuda_device, n_path=96)
+    _, m_ref = closed_loop.simulate_full(*sc, CFG, device=cuda_device)
+    assert not dist.is_initialized()
+    mesh = fleet.make_mesh()
+    try:
+        assert (mesh.backend, mesh.world, mesh.device.type) == ("nccl", 1, "cuda")
+        local = fleet.shard_scenarios(sc, mesh)
+        m, agg = fleet.fleet_simulate(local, CFG, mesh, full=True)
+    finally:
+        dist.destroy_process_group()
+    ref_np = closed_loop.TickMetrics(*[np_of(a) for a in m_ref])
+    assert_metrics_match(tree_to(m, "cpu"), ref_np, closed_loop.TickMetrics._fields,
+                         "fleet vs simulate_full.")
+    assert all(a.device.type == "cuda" for a in agg.values())
+    lat = ref_np.lateral_err.astype(np.float64)
+    assert float(agg["n_scenarios"]) == 64
+    np.testing.assert_allclose(float(agg["lateral_rmse"]), np.sqrt(np.mean(lat**2)),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(agg["mean_speed_kmh"]),
+                               ref_np.speed_kmh.astype(np.float64).mean(), rtol=1e-5)
+    assert float(agg["collisions"]) == ref_np.collided.reshape(64, -1).any(1).sum()
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A full-EM LoopCarry and its metrics saved from the card and restored
+    onto it bit for bit; the resume runs the kernels on the card."""
+    from emplanner_carla_tpu_torch.utils import checkpoint
+
+    sc = scenario.batch_scenarios(6, 32, CFG, device=cuda_device, n_path=96)
+    carry, m = closed_loop.simulate_full(*sc, CFG, device=cuda_device)
+    checkpoint.save(str(tmp_path), carry, m)
+    restored, m2 = checkpoint.restore(str(tmp_path), carry, m)
+    pairs = list(zip(tensors_of((restored, m2)), tensors_of((carry, m))))
+    assert len(pairs) == len(list(tensors_of((carry, m))))
+    for a, b in pairs:
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+    before = closed_loop.launches["tick_lqr"]
+    _, m3 = checkpoint.resume_simulation(sc.global_path, restored, CFG, n_plans=1,
+                                         full=True)
+    assert closed_loop.launches["tick_lqr"] == before + 1
+    assert m3.x.device.type == "cuda" and bool(torch.isfinite(m3.x).all())

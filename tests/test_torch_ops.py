@@ -264,3 +264,58 @@ def test_path_dp_matches_jax():
     et = t_path_dp.enrich_dp(dt[0], dt[1], t32(ps), t32(l0), t32(dl0), t32(ddl0), TC.path)
     for a, b in zip(ej, et):
         np.testing.assert_allclose(np_of(b), np.asarray(a), rtol=1e-6, atol=1e-5)
+
+
+def _rand_psd(rng, n, cond=10.0):
+    Q = np.linalg.qr(rng.normal(size=(n, n)))[0]
+    return (Q * np.linspace(1.0, cond, n)) @ Q.T
+
+
+def _general_qp(name):
+    """``tests/test_qp.py``'s general-QP problems (its seed, 7), as float32
+    (P, q, A, l, u, iters); P and q batched (B, ...) for "batch", the rest
+    unbatched."""
+    rng = np.random.default_rng(7)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    if name == "equality_only":
+        n = 8
+        return (f32(2 * np.eye(n)), f32(np.zeros(n)), f32(np.ones((1, n))),
+                f32([1.0]), f32([1.0]), 200)
+    if name == "mixed":
+        n, m_in = 10, 6
+        P = _rand_psd(rng, n)
+        q = rng.normal(size=n)
+        A_in = rng.normal(size=(m_in, n))
+        b_in = rng.uniform(0.5, 2.0, size=m_in)
+        A_eq = rng.normal(size=(2, n))
+        b_eq = rng.normal(size=2) * 0.1
+        return (f32(P), f32(q), f32(np.concatenate([A_in, A_eq])),
+                f32(np.concatenate([np.full(m_in, -1e8), b_eq])),
+                f32(np.concatenate([b_in, b_eq])), 500)
+    n, B = 6, 32
+    Ps = np.stack([_rand_psd(rng, n) for _ in range(B)])
+    qs = rng.normal(size=(B, n))
+    return f32(Ps), f32(qs), f32(np.eye(n)), f32(-np.ones(n)), f32(np.ones(n)), 150
+
+
+@pytest.mark.parametrize("name", ["equality_only", "mixed", "batch"])
+def test_solve_qp_and_kkt_residuals_match_jax(name):
+    P, q, A, l, u, iters = _general_qp(name)
+    if name == "batch":
+        x_j = jax.vmap(lambda Pi, qi: j_qp.solve_qp(Pi, qi, A, l, u, iters=iters))(P, q)
+        Pt, qt = torch.as_tensor(P), torch.as_tensor(q)
+    else:
+        x_j = j_qp.solve_qp(P, q, A, l, u, iters=iters)[None]
+        Pt, qt = torch.as_tensor(P)[None], torch.as_tensor(q)[None]
+    At, lt, ut = torch.as_tensor(A), torch.as_tensor(l), torch.as_tensor(u)
+    x_t = t_qp.solve_qp(Pt, qt, At, lt, ut, iters=iters)
+    assert x_t.shape == qt.shape
+    np.testing.assert_allclose(np_of(x_t), np.asarray(x_j), rtol=0, atol=1e-4)
+    prim_t, grad_t = t_qp.kkt_residuals(Pt, qt, At, lt, ut, x_t)
+    for i in range(qt.shape[0]):
+        prim_j, grad_j = j_qp.kkt_residuals(np_of(Pt[i]), np_of(qt[i]), A, l, u,
+                                            np_of(x_t[i]))
+        np.testing.assert_allclose(float(prim_t[i]), float(prim_j), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(np_of(grad_t[i]), np.asarray(grad_j), rtol=1e-5,
+                                   atol=1e-5)
+    assert float(prim_t.max()) < 1e-3

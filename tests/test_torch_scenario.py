@@ -101,3 +101,28 @@ print("isolated ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "isolated ok" in out.stdout
+
+
+def test_make_scenario_and_the_remaining_names():
+    """``make_scenario`` (one scenario at batch 1, ``batch_scenarios``' draw),
+    ``populate_scenario``, ``em_planner.n_target`` and the Frenet types."""
+    from emplanner_carla_tpu import types as j_types
+    from emplanner_carla_tpu.planner import em_planner as j_em
+    from emplanner_carla_tpu_torch import types as t_types
+    from emplanner_carla_tpu_torch.planner import em_planner as t_em
+
+    K = TC.n_static_obs + TC.n_dynamic_obs
+    one = t_sc.make_scenario(3, TC, device="cpu", n_path=96)
+    assert one.global_path.x.shape == (1, 96) and one.ego0.x.shape == (1,)
+    assert one.obstacles.x.shape == (1, K) and one.obstacles.valid.dtype == torch.bool
+    ref = t_sc.batch_scenarios(3, 1, TC, device="cpu", n_path=96)
+    for a, b in zip(jax.tree.leaves(tuple(one)), jax.tree.leaves(tuple(ref))):
+        assert torch.equal(a, b)
+    gp = t_sc.batch_scenarios(4, 3, TC, device="cpu", n_path=96).global_path
+    placed = t_sc.populate_scenario(9, TC, gp, 190.0, device="cpu")
+    assert placed.global_path.x.shape == (3, 96) and placed.obstacles.x.shape == (3, K)
+    assert torch.equal(placed.global_path.x, gp.x)
+    assert bool(torch.isfinite(placed.obstacles.x).all())
+    assert t_em.n_target(TC) == j_em.n_target(JC)
+    assert t_types.SLObstacles._fields == j_types.SLObstacles._fields
+    assert t_types.FrenetState._fields == j_types.FrenetState._fields

@@ -303,6 +303,115 @@ def run_single_threaded(fn, *args):
             return pickle.load(fh)
 
 
+_RANK_CHILD = (
+    "import datetime, pickle, sys\n"
+    "import torch\n"
+    "import torch.distributed as dist\n"
+    "torch.set_num_threads(1)\n"
+    "rank, world = int(sys.argv[1]), int(sys.argv[2])\n"
+    "with open(sys.argv[4], 'rb') as fh:\n"
+    "    fn, args = pickle.load(fh)\n"
+    "dist.init_process_group('gloo', init_method='file://' + sys.argv[3], rank=rank,\n"
+    "                        world_size=world,\n"
+    "                        timeout=datetime.timedelta(seconds=float(sys.argv[6])))\n"
+    "try:\n"
+    "    out = fn(*args)\n"
+    "finally:\n"
+    "    dist.destroy_process_group()\n"
+    "with open(sys.argv[5], 'wb') as fh:\n"
+    "    pickle.dump(out, fh)\n"
+)
+
+
+def run_gloo_ranks(world: int, fn, *args, timeout: float = 240.0):
+    """``fn(*args)`` on each of ``world`` CPU ranks, one child process a rank
+    with one torch thread, joined in a gloo default process group through a
+    file store; returns the ranks' results in rank order. ``fn`` must be a
+    module-level function of a module the children import without JAX (this
+    one). A rendezvous or collective that hangs fails after ``timeout``
+    seconds (the group's timeout and the children's), and a failed child's
+    stderr goes into the error."""
+    env = dict(os.environ, OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [_REPO, os.path.join(_REPO, "tests")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.pkl")
+        with open(src, "wb") as fh:
+            pickle.dump((fn, args), fh)
+        procs = []
+        for r in range(world):
+            cmd = [sys.executable, "-c", _RANK_CHILD, str(r), str(world),
+                   os.path.join(tmp, "store"), src, os.path.join(tmp, f"out{r}.pkl"),
+                   str(timeout)]
+            procs.append(subprocess.Popen(cmd, env=env, cwd=_REPO, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        errs = []
+        try:
+            for r, p in enumerate(procs):
+                _, err = p.communicate(timeout=timeout)
+                if p.returncode != 0:
+                    errs.append(f"rank {r} (rc {p.returncode}):\n{err[-4000:]}")
+        except subprocess.TimeoutExpired:
+            errs.append(f"ranks still running after {timeout} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if errs:
+            raise RuntimeError("gloo ranks failed:\n" + "\n".join(errs))
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as fh:
+                out.append(pickle.load(fh))
+        return out
+
+
+def numpy_tree(x):
+    """Every tensor of a nested NamedTuple/tuple/dict as a NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return np_of(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[numpy_tree(v) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(numpy_tree(v) for v in x)
+    if isinstance(x, dict):
+        return {k: numpy_tree(v) for k, v in x.items()}
+    return x
+
+
+def fleet_rank(scenarios, cfg, modes: dict, ckpt_dir: str):
+    """One rank of a CPU fleet: this rank's shard of ``scenarios`` (a port
+    Scenario of the whole batch) through ``fleet_simulate`` in each of
+    ``modes`` ({name: keyword arguments}), then the "full" mode's carry
+    saved into checkpoint directory ``ckpt_dir`` and restored. Returns
+    {name: (metrics, aggregates)} as NumPy, and under "checkpoint" the
+    directory's files once every rank saved and whether the restored carry
+    equals the saved one."""
+    import torch.distributed as dist
+
+    from emplanner_carla_tpu_torch.parallel import fleet
+    from emplanner_carla_tpu_torch.utils import checkpoint
+
+    mesh = fleet.make_mesh()
+    assert mesh.backend == "gloo" and mesh.device.type == "cpu"
+    local = fleet.shard_scenarios(scenarios, mesh)
+    out, carries = {}, {}
+    for name, kw in modes.items():
+        metrics, agg, carries[name] = fleet.fleet_simulate(local, cfg, mesh,
+                                                           return_carry=True, **kw)
+        out[name] = (numpy_tree(metrics), {k: float(v) for k, v in agg.items()})
+    checkpoint.save(ckpt_dir, carries["full"])
+    dist.barrier()
+    restored = checkpoint.restore(ckpt_dir, carries["full"])
+    same = all(torch.equal(a, b) for a, b in zip(tensors_of(restored),
+                                                  tensors_of(carries["full"])))
+    out["checkpoint"] = (sorted(os.listdir(ckpt_dir)), same)
+    return out
+
+
 def column_depth_bar(ego, obs, walk, ref, cls_is_walker, cam):
     """Allowed |port - ref| of ``camera.render_columns``' depth ``ref`` (B, W)
     of one class on a layout (ego, obstacles, walker mask as NumPy arrays)
