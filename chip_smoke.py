@@ -107,7 +107,22 @@ Phases (any failure exits non-zero and prints no result line):
    config 7 and ``simulate_pixels`` (full EM, path-only, and path-only on
    the rendered frame) on 128 scenarios x 2 plans with ``device="cuda"``
    and ``device="cpu"``; config 6b's route engine on 128 pairs, identical;
-6. the script's wall time, a ``{"kernels": [...]}`` JSON line, then the
+6. the edge phase, the reference's own edge-case scenarios (builders from
+   NumPy, held equal to the JAX tests' by
+   ``tests/test_torch_edge_builders.py``): planted lanes of the batch (lanes
+   ``PLANTED``: a NaN ego speed, the obstacle wall, the wall with NaN
+   obstacle slots, ``tests/test_feasibility.py:140``, :55, :106) in
+   ``simulate`` (config 3), ``simulate_full`` (config 5) and
+   ``simulate_traffic(full=True)`` (config 7), 8 plans and a 12 m lateral
+   gate, each beside the same batch clean: the healthy lanes' metrics and
+   carry bit for bit the clean run's, the planted lanes meeting the JAX
+   test's assertions and equal to the same lanes' CPU run (NaN at the same
+   places); then ``EDGE_CASES`` (a crosser the ego cannot yield to, a red
+   light, a walker, an NPC's lane change, a stopped ego behind its lead,
+   the emergency brake on arrival) broadcast to the batch: every lane
+   lane 0's bits, lane 0 equal to the CPU run and meeting the JAX test's
+   assertions; the phase's wall;
+7. the script's wall time, a ``{"kernels": [...]}`` JSON line, then the
    last line ``{"ok": true, "device": {...}}``.
 
 ``--summary PATH`` also writes the end-to-end medians there as JSON
@@ -1119,6 +1134,472 @@ def _fleet_phase(cfg, sc, sc8, m5, zero, per_path, card):
     print(f"fleet phase wall: {time.perf_counter() - t_phase:.1f} s on [{card}]", flush=True)
 
 
+# ---- the edge phase: the JAX package's own edge-case scenarios, rebuilt
+# from NumPy (tests/test_torch_edge_builders.py holds every builder array for
+# array against the JAX tests' builders) ----
+
+# the containment runs' loop (tests/test_feasibility.py:48-52): 8 plans and
+# a 12 m lateral gate, so that the whole wall is perceived
+CONTAINMENT_PLANS = 8
+CONTAINMENT_GATE = 12.0
+WALL_S = 25.0
+# the wall's lateral offsets, one a static slot: jnp.linspace(-8.75, 8.75, 8)
+# in float32 (tests/test_feasibility.py:37), whose rounding NumPy's does not
+# reproduce
+WALL_L = (-8.75, -6.25, -3.75, -1.2499995231628418, 1.250000238418579,
+          3.750000238418579, 6.250000476837158, 8.75)
+# the planted lanes of the batch and what each holds: they share the tick
+# kernel's 32-lane blocks and warps and the QP kernel's 32-lane tiles with
+# healthy lanes (tests/test_feasibility.py:55 the wall, :106 the wall with
+# NaN obstacle slots, :140 a NaN ego speed)
+PLANTED = {1: "nan_vx", 2: "wall", 3: "nan_wall", 33: "wall", 2048: "nan_vx",
+           4095: "nan_wall"}
+# jax.random.uniform's unit floats behind make_scenario(PRNGKey(5), ...)
+# (tests/test_closed_loop.py:73): amp, pos, width (6 each), s, l (12 each),
+# dyn, walk
+EMERGENCY_DRAWS = (
+    (0.616879940032959, 0.000664830207824707, 0.037978172302246094,
+     0.1442934274673462, 0.16922831535339355, 0.43109130859375),
+    (0.08242499828338623, 0.5812526941299438, 0.86997389793396,
+     0.23379647731781006, 0.8386893272399902, 0.06594061851501465),
+    (0.09706974029541016, 0.6954555511474609, 0.3855257034301758,
+     0.21448659896850586, 0.17406606674194336, 0.9158449172973633),
+    (0.08381330966949463, 0.22921323776245117, 0.11234712600708008,
+     0.2685335874557495, 0.12162470817565918, 0.4554823637008667,
+     0.5360288619995117, 0.47860443592071533, 0.1630462408065796,
+     0.07066178321838379, 0.015344500541687012, 0.5327630043029785),
+    (0.9563421010971069, 0.7585760354995728, 0.20780706405639648,
+     0.5824768543243408, 0.6477830410003662, 0.4720571041107178,
+     0.7611249685287476, 0.7450920343399048, 0.8192826509475708,
+     0.8155168294906616, 0.5589034557342529, 0.7092293500900269),
+    (0.11213433742523193,),
+    (0.13088715076446533,),
+)
+# name: (the JAX test, plan cycles (tick loops for the stopped ego), entry)
+EDGE_CASES = {
+    "yield_infeasible": ("tests/test_fidelity.py:589", 5, "simulate_full"),
+    "red_light_stop": ("tests/test_fidelity.py:720", 10, "simulate"),
+    "walker_yield": ("tests/test_fidelity.py:773", 5, "simulate_full"),
+    "npc_lane_change": ("tests/test_fidelity.py:828", 3, "simulate_traffic"),
+    "stopped_behind_lead": ("tests/test_closed_loop.py:89", 3, "ticks"),
+    "emergency_brake": ("tests/test_closed_loop.py:73", 30, "simulate"),
+}
+
+
+def _straight(n: int):
+    """A straight road of n nodes 2 m apart along x: (x, y, theta, kappa)."""
+    import numpy as np
+
+    z = np.zeros(n, np.float32)
+    return np.arange(n, dtype=np.float32) * np.float32(2.0), z, z.copy(), z.copy()
+
+
+def _layout(cfg, path, v0: float, slots: dict, ego_xy=None):
+    """A one-lane port Scenario on the CPU: ``path`` (x, y, theta, kappa),
+    the ego at the path start (or at ``ego_xy``) with heading theta[0] and
+    speed v0, obstacle slot k at (x, y, vx, vy) = slots[k] and valid, the
+    other slots zero and invalid."""
+    import numpy as np
+    import torch
+
+    from emplanner_carla_tpu_torch.sim.scenario import Scenario
+    from emplanner_carla_tpu_torch.types import EgoState, Obstacles, Path
+
+    K = cfg.n_static_obs + cfg.n_dynamic_obs
+    ob = np.zeros((4, K), np.float32)
+    valid = np.zeros(K, bool)
+    for k, v in slots.items():
+        ob[:, k] = v
+        valid[k] = True
+    x0, y0 = (path[0][0], path[1][0]) if ego_xy is None else ego_xy
+    ego = np.array([x0, y0, path[2][0], v0, 0, 0, 0, 0, 0], np.float32)
+    one = lambda a: torch.as_tensor(np.array(a))[None]  # noqa: E731
+    return Scenario(Path(*[one(a) for a in path]), EgoState(*[one(a) for a in ego]),
+                    Obstacles(*[one(a) for a in ob], one(valid)))
+
+
+def wall_scenario(cfg, n: int = 160, nan_slots: bool = False):
+    """tests/test_feasibility.py:26 ``_wall_scenario``: a straight road and
+    the static slots as a wall at x = 25 across every DP row, the ego at 8
+    m/s; with ``nan_slots`` slot 0's x and slot 1's y NaN (:106)."""
+    if cfg.n_static_obs != len(WALL_L):
+        raise ValueError(f"the wall has {len(WALL_L)} slots, the config "
+                         f"{cfg.n_static_obs} static ones")
+    slots = {k: (WALL_S, WALL_L[k], 0.0, 0.0) for k in range(cfg.n_static_obs)}
+    sc = _layout(cfg, _straight(n), 8.0, slots)
+    if nan_slots:
+        sc.obstacles.x[0, 0] = float("nan")
+        sc.obstacles.y[0, 1] = float("nan")
+    return sc
+
+
+def edge_scenario(name: str, cfg):
+    """The one-lane scenario of EDGE_CASES[name] on the CPU, and its extra
+    inputs: the traffic lights of the red-light stop."""
+    import numpy as np
+    import torch
+
+    from emplanner_carla_tpu_torch.sim import scenario
+    from emplanner_carla_tpu_torch.sim.traffic_light import TrafficLights
+
+    d0 = cfg.n_static_obs
+    if name == "yield_infeasible":      # tests/test_fidelity.py:541
+        return _layout(cfg, _straight(200), 18.0, {d0: (26.0, -21.0, 0.0, 19.0)}), {}
+    if name == "red_light_stop":        # red on [0, 5) s, green on [5, 10), ...
+        lights = TrafficLights(*[torch.tensor([v]) for v in (
+            [40.0, 0.0], [0.0, 0.0], [10.0, 1.0], [5.0, 0.0], [0.5, 1.0])],
+            torch.tensor([[True, False]]))
+        return _layout(cfg, _straight(200), 10.0, {}), {"lights": lights}
+    if name == "walker_yield":
+        return _layout(cfg, _straight(200), 10.0, {d0: (18.0, -3.4, 0.0, 1.4)}), {}
+    if name == "npc_lane_change":       # a parked car, the agent NPC behind it
+        return _layout(cfg, _straight(200), 5.0, {0: (60.0, 0.0, 0.0, 0.0),
+                                                   d0: (20.0, 0.0, 8.0, 0.0)}), {}
+    if name == "stopped_behind_lead":   # at rest 5 m behind a stopped car
+        return _layout(cfg, _straight(64), 0.0, {0: (30.0, 0.0, 0.0, 0.0)},
+                       ego_xy=(25.0, 0.0)), {}
+    if name == "emergency_brake":       # a 100-node random road, nothing on it
+        u = scenario.ScenarioUniforms(*[torch.tensor(np.array(d, np.float32))[None]
+                                        for d in EMERGENCY_DRAWS[:5]],
+                                      *[torch.tensor(d, dtype=torch.float32)
+                                        for d in EMERGENCY_DRAWS[5:]])
+        return scenario.make_scenario_from_uniforms(
+            u, cfg, n_path=100, n_active_static=0, with_dynamic=False), {}
+    raise KeyError(name)
+
+
+def edge_cfg(name: str, cfg):
+    """The config EDGE_CASES[name] runs under: ``cfg`` with its plan count
+    (the stopped ego runs ``cfg`` as it is)."""
+    _, n, entry = EDGE_CASES[name]
+    return cfg if entry == "ticks" else _with_plans(cfg, n)
+
+
+def edge_run(name: str, sc, extra: dict, cfg, device):
+    """Run EDGE_CASES[name] on ``sc`` (any batch) on ``device`` through the
+    port's entry point: (carry, TickMetrics of (B, n_plans, plan_every));
+    the stopped ego's three tick loops (``closed_loop.run_ticks``: the
+    kernel on the card) give (EgoState, TickMetrics of the last loop)."""
+    import torch
+
+    from emplanner_carla_tpu_torch.sim import closed_loop
+    from emplanner_carla_tpu_torch.types import tree_to
+
+    c = edge_cfg(name, cfg)
+    entry = EDGE_CASES[name][2]
+    if entry == "simulate":
+        return closed_loop.simulate(*sc, c, lights=extra.get("lights"), device=device)
+    if entry == "simulate_full":
+        return closed_loop.simulate_full(*sc, c, device=device)
+    if entry == "simulate_traffic":
+        return closed_loop.simulate_traffic(*sc, c, behavior="normal", device=device)
+    gp, ego, obs = tree_to(sc, device)
+    B, nd = ego.x.shape[0], c.speed.n_dense
+    f32 = dict(dtype=torch.float32, device=device)
+    ttime = torch.arange(nd, **f32) * (c.speed.n_t * c.speed.t_step / (nd - 1))
+    tspeed = torch.full((B, nd), c.loop.target_speed_kmh / 3.6, **f32)
+    buf = torch.zeros((B, c.control.pid_buffer), **f32)
+    cnt = torch.zeros(B, dtype=torch.int32, device=device)
+    last = torch.zeros(B, **f32)
+    arrived = torch.zeros(B, dtype=torch.bool, device=device)
+    tru = torch.ones(B, dtype=torch.bool, device=device)
+    dest_x, dest_y = gp.x[:, -1].contiguous(), gp.y[:, -1].contiguous()
+    for _ in range(EDGE_CASES[name][1]):
+        ego, buf, cnt, last, obs, arrived, m = closed_loop.run_ticks(
+            ego, buf, cnt, last, obs, tspeed, ttime, gp, arrived, tru, tru, dest_x,
+            dest_y, c)[:7]
+    return ego, closed_loop.TickMetrics(*m, torch.zeros_like(cnt)[:, None].expand_as(m[0]))
+
+
+def yield_cycle0(sc, cfg):
+    """Cycle 0's speed stage of the yield-infeasible scenario, recomputed
+    with the port's pieces as tests/test_fidelity.py:604-649 does with the
+    JAX package's, on the tensors' device: (valid ST segments, s_ub and
+    s_lb (B, n_t), plan-start speed and acceleration (B,), the cold speed
+    QP's accelerations (B, n_t + 1))."""
+    import torch
+
+    from emplanner_carla_tpu_torch.ops import frenet
+    from emplanner_carla_tpu_torch.planner import em_planner, speed_planner, trajectory
+    from emplanner_carla_tpu_torch.sim import perception
+
+    gp, ego, obs = sc
+    sp, d0 = cfg.speed, cfg.n_static_obs
+    target = em_planner.plan_path_cycle(gp, ego, obs, frenet.nearest_index(ego.x, ego.y, gp),
+                                        cfg).target
+    vx_w, vy_w = ego.v_world
+    s_dot0, s_ddot0 = speed_planner.speed_plan_start(vx_w, vy_w, ego.ax, ego.ay,
+                                                     target.theta[:, 0])
+    s_dot0 = torch.clamp(s_dot0, min=0.0)
+    path_arc = trajectory.path_arc_length(target)
+    dyn_mask = perception.perceive(ego, obs, cfg.loop)[1]
+    seg = speed_planner.st_graph(*frenet.dynamic_obs_frenet(
+        obs.x[:, d0:], obs.y[:, d0:], obs.vx[:, d0:], obs.vy[:, d0:], target, path_arc),
+        dyn_mask[:, d0:], sp)
+    dp = speed_planner.speed_dp(seg, s_dot0, sp)
+    s_lb, s_ub, sd_lb, sd_ub = speed_planner.convex_space(dp, seg, path_arc, target.kappa, sp)
+    qa = speed_planner.speed_qp(s_dot0, s_ddot0, s_lb, s_ub, sd_lb, sd_ub, sp)[2]
+    return seg.valid.sum(1), s_ub, s_lb, s_dot0, s_ddot0, qa
+
+
+def assert_yield_relaxation(cycle0, cfg, lane: int = 0):
+    """tests/test_fidelity.py:629-649 on one lane of :func:`yield_cycle0`:
+    one ST segment; a yield (finite upper cap, zero lower bound); the cap
+    more than 1 m below the float64 max-braking envelope (the relaxation
+    active); the relaxed QP brakes at accel_min."""
+    n_seg, s_ub, s_lb, s_dot0, s_ddot0, qa = (a[lane].detach().cpu() for a in cycle0)
+    sp = cfg.speed
+    if int(n_seg) != 1:
+        raise AssertionError(f"yield-infeasible: {int(n_seg)} ST segments, not 1")
+    if not (float(s_ub.min()) < 1e7 and float(s_lb.max()) == 0.0):
+        raise AssertionError("yield-infeasible: the DP did not choose the yield")
+    v, a, se, env = float(s_dot0), float(s_ddot0), 0.0, []
+    for _ in range(sp.n_t):
+        an = max(sp.accel_min, -2.0 * v / sp.t_step - a)
+        vn = max(v + sp.t_step * 0.5 * (a + an), 0.0)
+        se = se + sp.t_step * v + sp.t_step ** 2 / 3.0 * a + sp.t_step ** 2 / 6.0 * an
+        env.append(se)
+        v, a = vn, an
+    gap = min(float(u) - e for u, e in zip(s_ub.tolist(), env))
+    if not gap < -1.0:
+        raise AssertionError(f"yield-infeasible: relaxation not active, gap {gap:.3f} m")
+    if not float(qa.min()) <= sp.accel_min + 0.1:
+        raise AssertionError(f"yield-infeasible: least planned accel {float(qa.min()):.3f}")
+
+
+def assert_edge(name: str, out, cfg, lane: int = 0):
+    """The JAX test's own assertions on one lane of :func:`edge_run`'s
+    output (the float64 oracle's bars stay in the CPU tests)."""
+    import numpy as np
+
+    carry, m = out
+    a = lambda t: t[lane].detach().cpu().numpy()  # noqa: E731
+    x, y, spd = a(m.x).reshape(-1), a(m.y).reshape(-1), a(m.speed_kmh).reshape(-1)
+    collided = bool(a(m.collided).any())
+    t = (np.arange(x.size) + 1.0) * cfg.plant.dt
+    if name == "stopped_behind_lead":
+        checks = {"held at x = 25": abs(float(a(carry.x)) - 25.0) <= 1e-2,
+                  "at rest": float(a(carry.vx)) < 0.05}
+    elif name == "yield_infeasible":
+        checks = {"hard brake": float(spd[:150].min()) < 45.0}
+    elif name == "red_light_stop":
+        checks = {"held for the red": float(spd[450:500].max()) < 5.0,
+                  "short of the line": float(x[:500].max()) < 38.0,
+                  "proceeded on green": float(x[-1]) > 55.0}
+    elif name == "walker_yield":
+        checks = {"yielded": float(spd.min()) < 26.0,
+                  "swerved": float(np.abs(y).max()) > 2.0,
+                  "clear of the walker": float(np.hypot(x - 18.0, y - (-3.4 + 1.4 * t)).min())
+                  > 2.0}
+    elif name == "npc_lane_change":
+        d0 = cfg.n_static_obs
+        checks = {"committed left": abs(float(a(carry.npc_lane.target)[d0]) - 3.5) <= 3.5e-6,
+                  "slewed over": float(a(carry.npc_lane.offset)[d0]) > 3.0}
+    elif name == "emergency_brake":
+        checks = {"arrived": bool(a(m.arrived).any()),
+                  "stopped": float(a(m.speed_kmh)[-1, -1]) < 5.0}
+    else:
+        raise KeyError(name)
+    checks["no collision"] = not collided
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name} ({EDGE_CASES[name][0]}): {', '.join(failed)}")
+
+
+def plant_lanes(sc, cfg):
+    """The batch ``sc`` (on any device) with :data:`PLANTED`'s lanes
+    replaced: a NaN ego speed in the lane's own scenario; the wall, or the
+    wall with NaN obstacle slots, on a straight road of the batch's path
+    length in place of the lane's scenario."""
+    from emplanner_carla_tpu_torch.types import tree_leaves, tree_map
+
+    n = sc.global_path.x.shape[1]
+    out = tree_map(sc, lambda t: t.clone())
+    for lane, kind in PLANTED.items():
+        if kind == "nan_vx":
+            out.ego0.vx[lane] = float("nan")
+            continue
+        w = wall_scenario(cfg, n, nan_slots=kind == "nan_wall")
+        for dst, src in zip(tree_leaves(out), tree_leaves(w)):
+            dst[lane] = src[0].to(dst.device)
+    return out
+
+
+def assert_planted(kind: str, entry: str, carry, m, lane: int, cfg):
+    """tests/test_feasibility.py's assertions on one planted lane. The wall
+    (:55): infeasible in some cycle, feasibility constant within a cycle,
+    no collision, below 5 km/h at the end and short of the wall by the
+    collision radius. NaN obstacle slots (:106): every metric and the ego's
+    x finite, the surviving wall slots cleared by more than the collision
+    radius, and through the gap: past x = 40 in ``simulate``, where the JAX
+    test measures it, past the wall elsewhere (the JAX package's own full-EM
+    loops end this scenario's 8 plans at x = 39.31). A NaN ego speed (:140):
+    infeasible in every cycle."""
+    import numpy as np
+    import torch
+
+    from emplanner_carla_tpu_torch.sim.loop_constants import COLLISION_RADIUS
+
+    a = lambda t: t[lane].detach().cpu()  # noqa: E731
+    feas = a(m.feasible)
+    if kind == "nan_vx":
+        ok = {"infeasible in every cycle": not bool(feas.any())}
+    elif kind == "wall":
+        ok = {"infeasible in some cycle": not bool(feas.all()),
+              "constant within a cycle": bool((feas == feas[:, :1]).all()),
+              "no collision": not bool(a(m.collided).any()),
+              "stopped": float(a(m.speed_kmh)[-1, -1]) < 5.0,
+              "short of the wall": float(a(m.x)[-1, -1]) < WALL_S - COLLISION_RADIUS}
+    else:
+        xs, ys = a(m.x).reshape(-1).double().numpy(), a(m.y).reshape(-1).double().numpy()
+        wall_l = np.linspace(-8.75, 8.75, cfg.n_static_obs)
+        d_surv = min(float(np.hypot(xs - WALL_S, ys - wall_l[k]).min())
+                     for k in range(2, cfg.n_static_obs))
+        past = 40.0 if entry == "simulate" else WALL_S + COLLISION_RADIUS
+        ego = carry.loop.ego if hasattr(carry, "loop") else carry.ego
+        ok = {"finite metrics": all(bool(torch.isfinite(a(t).float()).all()) for t in m),
+              "finite ego": bool(torch.isfinite(a(ego.x))),
+              "survivors cleared": d_surv > COLLISION_RADIUS,
+              f"past x = {past}": float(xs[-1]) > past}
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        raise AssertionError(f"planted {kind} in lane {lane} ({entry}): {', '.join(failed)}")
+
+
+def _assert_close_nan(a, b, label):
+    """Every tensor of tree ``a`` (the card's) against tree ``b`` (the CPU's)
+    at the loop's bar: bool and int tensors identical, float tensors with
+    NaN at the same places and the rest within rtol 1e-5 / atol 5 mm."""
+    import torch
+
+    from emplanner_carla_tpu_torch.types import tree_leaves
+
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    if not pairs:
+        raise AssertionError(f"{label}: nothing to compare")
+    for i, (x, y) in enumerate(pairs):
+        x = x.cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{label}: tensor {i} {x.dtype} {tuple(x.shape)} against "
+                                 f"{y.dtype} {tuple(y.shape)}")
+        if not x.dtype.is_floating_point:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: tensor {i}: {int((x != y).sum())} differ")
+            continue
+        nx = torch.isnan(x)
+        if not torch.equal(nx, torch.isnan(y)):
+            raise AssertionError(f"{label}: tensor {i}: NaN at other places")
+        if not torch.allclose(x[~nx], y[~nx], rtol=1e-5, atol=5e-3):
+            raise AssertionError(f"{label}: tensor {i}: max |diff| "
+                                 f"{float((x[~nx] - y[~nx]).abs().max())}")
+
+
+def _ego_of(out):
+    """The ego state of an entry point's carry (or of the tick loops')."""
+    carry = out[0]
+    carry = carry.loop if hasattr(carry, "loop") else carry
+    return carry.ego if hasattr(carry, "ego") else carry
+
+
+def _edge_phase(cfg, sc, zero, card):
+    """The edge phase. Planted lanes: ``simulate`` (config 3),
+    ``simulate_full`` (config 5) and ``simulate_traffic(full=True)`` (config
+    7) under the containment loop, each on the batch with PLANTED's lanes
+    and on the clean batch: the healthy lanes' metrics and carry bit for bit
+    the clean run's; the planted lanes meet tests/test_feasibility.py's
+    assertions and equal the same lanes run on the CPU (three at a time,
+    the plain versions) at the loop's bar, NaN at the same places. Then each
+    of EDGE_CASES broadcast to the batch: every lane equal to lane 0 bit for
+    bit, lane 0 equal to the CPU run at the loop's bar and meeting the JAX
+    test's assertions; for the yield-infeasible case also its cycle-0 speed
+    stage (cold path QP, path-DP costs, speed DP, cold speed QP)."""
+    import torch
+
+    from emplanner_carla_tpu_torch.sim import closed_loop
+    from emplanner_carla_tpu_torch.types import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    rep = dataclasses.replace
+    ccfg = rep(cfg, loop=rep(cfg.loop, n_plans=CONTAINMENT_PLANS,
+                             lateral_gate=CONTAINMENT_GATE))
+    planted = plant_lanes(sc, ccfg)
+    lanes = sorted(PLANTED)
+    healthy = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+    healthy[lanes] = False
+    full = ("qp_admm_warm", "qp_admm_speed", "path_obs_costs", "speed_dp")
+    for label, entry, kernels in (
+        ("simulate config 3", "simulate", ("qp_admm_warm", "path_obs_costs", "tick_lqr")),
+        ("simulate_full config 5", "simulate_full", full + ("tick_lqr",)),
+        ("simulate_traffic config 7", "simulate_traffic", full + ("tick_traffic",)),
+    ):
+        fn = getattr(closed_loop, entry)
+        kw = dict(behavior="normal", full=True) if entry == "simulate_traffic" else {}
+        run = lambda s, dev: fn(*s, ccfg, device=dev, **kw)  # noqa: E731
+        expected = {**zero, **{k: CONTAINMENT_PLANS for k in kernels}}
+        clean, _, _ = _drive(f"{label}, clean", lambda: run(sc, "cuda"), expected, 1)
+        out, walls, _ = _drive(f"{label}, planted", lambda: run(planted, "cuda"), expected, 1)
+        leaves = list(zip(tree_leaves(out), tree_leaves(clean)))
+        for i, (x, y) in enumerate(leaves):
+            if x.shape[0] != BATCH or not torch.equal(x[healthy], y[healthy]):
+                raise AssertionError(f"{label}: tensor {i} of a healthy lane differs from "
+                                     "the clean run")
+        carry, m = out
+        for lane in lanes:
+            assert_planted(PLANTED[lane], entry, carry, m, lane, ccfg)
+        if not bool(torch.isfinite(m.lateral_err[healthy]).all()):
+            raise AssertionError(f"{label}: a healthy lane's lateral error is not finite")
+        for part in (lanes[:3], lanes[3:]):
+            out_cpu = run(tree_map(planted, lambda t: t[part].cpu()), "cpu")
+            idx = torch.tensor(part, device="cuda")
+            pick = lambda t: t[idx]  # noqa: E731
+            _assert_close_nan(tree_map(m, pick), out_cpu[1], f"{label} lanes {part}")
+            _assert_close_nan(tree_map(_ego_of(out), pick), _ego_of(out_cpu),
+                              f"{label} lanes {part} ego")
+        print(f"edge phase, planted lanes in {label}: batch {BATCH} x {CONTAINMENT_PLANS} "
+              f"plans, lanes {PLANTED}: the healthy lanes' {len(leaves)} metric and carry "
+              "tensors bit for bit the clean run's; the planted lanes meet "
+              "tests/test_feasibility.py's assertions and equal the CPU run (NaN at the "
+              f"same places, the rest within rtol 1e-5 / atol 5 mm); {walls[0]:.3f} s",
+              flush=True)
+    path_only = ("qp_admm_warm", "path_obs_costs")
+    for name, (src, n, entry) in EDGE_CASES.items():
+        sc1, extra = edge_scenario(name, cfg)
+        wide = lambda t: t.expand(BATCH, *t.shape[1:]).contiguous().cuda()  # noqa: E731
+        big, big_extra = tree_map(sc1, wide), {k: tree_map(v, wide) for k, v in extra.items()}
+        kernels = {"simulate": path_only + ("tick_lqr_lights" if extra else "tick_lqr",),
+                   "simulate_full": full + ("tick_lqr",),
+                   "simulate_traffic": path_only + ("tick_traffic",),
+                   "ticks": ("tick_lqr",)}[entry]
+        out, walls, _ = _drive(f"edge {name}", lambda: edge_run(name, big, big_extra, cfg,
+                                                                "cuda"),
+                               {**zero, **{k: n for k in kernels}}, 1)
+        for i, x in enumerate(tree_leaves(out)):
+            if not torch.equal(x, x[:1].expand_as(x)):
+                raise AssertionError(f"edge {name}: tensor {i} differs between lanes")
+        out_cpu = edge_run(name, sc1, extra, cfg, "cpu")
+        first = lambda t: t[:1]  # noqa: E731
+        _assert_close_nan(tree_map(out[1], first), out_cpu[1], f"edge {name}")
+        _assert_close_nan(tree_map(_ego_of(out), first), _ego_of(out_cpu), f"edge {name} ego")
+        assert_edge(name, out, edge_cfg(name, cfg))
+        note = ""
+        if name == "yield_infeasible":
+            c = edge_cfg(name, cfg)
+            cyc, _, _ = _drive("edge yield_infeasible cycle 0", lambda: yield_cycle0(big, c),
+                               {**zero, **{k: 1 for k in ("qp_admm_cold_path", "path_obs_costs",
+                                                          "speed_dp", "qp_admm_cold_speed")}}, 1)
+            for i, x in enumerate(cyc):
+                if not torch.equal(x, x[:1].expand_as(x)):
+                    raise AssertionError(f"edge yield_infeasible cycle 0: output {i} differs "
+                                         "between lanes")
+            assert_yield_relaxation(cyc, c)
+            note = ("; cycle 0's speed stage on the card: one ST segment, a yield below the "
+                    "max-braking envelope, the relaxed QP braking at accel_min")
+        print(f"edge phase, {name} ({src}, {entry}): batch {BATCH}, every lane lane 0's "
+              f"bits, lane 0 equal to the CPU run at the loop's bar and meeting the JAX "
+              f"test's assertions{note}; {walls[0]:.3f} s", flush=True)
+    print(f"edge phase wall: {time.perf_counter() - t_phase:.1f} s on [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1460,6 +1941,9 @@ def main() -> int:
     print("device equivalence, config 1 and config 2: 128 lanes, cuda == cpu (S-T "
           "stations within rtol 1e-4 / atol 1 mm; target path within rtol 1e-5 / "
           "atol 5 mm, feasibility identical)", flush=True)
+
+    # ---- edge phase ----
+    _edge_phase(cfg, sc, zero, card)
 
     if opts.summary:
         with open(opts.summary, "w") as fh:

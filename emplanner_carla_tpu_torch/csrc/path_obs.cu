@@ -73,7 +73,9 @@ __host__ __device__ inline int warp_floats(int lanes, int K, int m) {
 // lateral terms from dl2 (M > 0) or formed here from obs_l o and row rr. A
 // squared distance is >= +0 or NaN, so its bits order as unsigned integers
 // do (NaN above every number): d2 <= danger2 and danger2 < d2 < safe2 are
-// integer compares of the bits. At the main path's m the squared distances
+// integer compares of the bits. A NaN or +inf d2 is neither (its bits lie
+// above safe2's), so only finite band samples reach the fmaxf below, as only
+// they reach the plain version's where(band, ...): a NaN obstacle costs 0. At the main path's m the squared distances
 // come first and the quotients (an IEEE division each) only for the samples
 // in the band.
 template <int M>

@@ -277,7 +277,8 @@ __global__ void __launch_bounds__(NS ? NS * G : NSMAX * G, 960 / (NS ? NS * G : 
       int mask = 0;
       for (int kk = 0; kk < K; ++kk) {
         const float ti = s_lane[2 * K + kk], to = s_lane[3 * K + kk];
-        const float gap = c < C ? fmaxf(ti - t_end, t_start - to) : fmaxf(ti - t0, -to);
+        // torch.maximum's NaN: a segment with a NaN time is live nowhere
+        const float gap = c < C ? max_nan(ti - t_end, t_start - to) : max_nan(ti - t0, -to);
         if (s_lane[4 * K + kk] > 0.5f && gap < dang) mask |= 1 << kk;
       }
       live[c] = mask;

@@ -95,6 +95,28 @@
 // The file builds with -fmad=false and uses jnp.hypot's formula, and every
 // sum runs in the plain version's order, so the arithmetic matches the plain
 // PyTorch loop term for term.
+//
+// NaN and inf follow the plain version too, so that a poisoned lane (a NaN
+// ego, a NaN obstacle, an infinite speed) comes out as it does there. CUDA's
+// fmaxf / fminf return the operand that is not NaN, where torch.maximum,
+// torch.minimum and torch.clamp (and jnp's) return NaN: wherever a NaN can
+// reach a max or a min, the kernel uses max_nan; the fminf / fmaxf
+// that remain only ever see operands that passed an ordered comparison (a
+// lead's d_long > 0, a stop line's dl > 0, the finite results of those) and
+// say so. hypot_j returns NaN for a NaN operand that is not beside an inf, as
+// types.hypot does. The first-minimum matches keep torch.argmin's rule: a NaN
+// distance is the minimum, the first NaN wins; a distance can be NaN only
+// where the query (the ego's predicted pose, an agent) is not finite, so the
+// NaN-aware scan runs only then. A float turns into an index only where it
+// is a number; a NaN table position takes row 0, as the plain version's
+// integer cast, clamped, does on both devices. None of this changes a result
+// on finite inputs.
+//
+// The plan a launch follows must be finite: the target path, the speed
+// profile and its time grid. Every caller passes the sanitised plan
+// (closed_loop.py's replan: _sanitize of the target, nan_to_num of the speed
+// and the times), so the kernel does not scan them; on a non-finite plan it
+// need not give the plain version's NaN.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -170,18 +192,22 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v > hi ? hi : v;
 }
 
-// jnp.maximum(v, lo) / torch.clamp(v, min=lo): a NaN v passes through
+// jnp.maximum(v, lo) / torch.clamp(v, min=lo) for a constant lo: a NaN v
+// passes through
 __device__ __forceinline__ float max_nan(float v, float lo) { return v < lo ? lo : v; }
 
 // jnp.hypot: max * sqrt(1 + (min/max)^2). Where min <= max * 2^-13 the
 // square of min/max is below half an ulp of 1, so the result is max itself:
 // returning it skips a division that for a zero or subnormal min (the
 // kinematic vy = 0, a lane that drives straight along an axis) would take
-// the hardware's slow path, several times the fast one.
+// the hardware's slow path, several times the fast one. An inf operand
+// gives +inf, else a NaN operand NaN (types.hypot; fmaxf / fminf below would
+// drop it).
 __device__ __forceinline__ float hypot_j(float a, float b) {
   a = fabsf(a);
   b = fabsf(b);
   if (isinf(a) || isinf(b)) return INFINITY;
+  if (a != a || b != b) return a + b;
   float hi = fmaxf(a, b), lo = fminf(a, b);
   if (hi == 0.f) return hi;
   if (lo <= hi * 0x1p-13f) return hi;
@@ -198,6 +224,7 @@ __device__ __forceinline__ float floored_mod(float a, float b) {
 
 // ---- the lane group: G adjacent threads of a warp, mask `gm` ----
 
+// (its operands are the leads' d_long > 0 and +inf: never NaN)
 __device__ __forceinline__ float group_fmin(float v, unsigned gm) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(gm, v, o, G));
@@ -208,14 +235,20 @@ __device__ __forceinline__ bool group_any(bool p, unsigned gm) {
   return (__ballot_sync(gm, p) & gm) != 0u;
 }
 
-// (d, i) -> the group's smallest d, the smallest i among equal d: with each
+// torch.argmin's order of (distance, index): NaN below every number, then
+// the smaller distance, an exact tie (or two NaNs) to the smaller index
+__device__ __forceinline__ bool argmin_before(float od, int oi, float d, int i) {
+  return od != od ? (d == d || oi < i) : (od < d || (od == d && oi < i));
+}
+
+// (d, i) -> the group's first (d, i) in argmin_before's order: with each
 // thread's own first minimum, the first minimum of the whole loop
 __device__ __forceinline__ void group_argmin(float& d, int& i, unsigned gm) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) {
     const float od = __shfl_xor_sync(gm, d, o, G);
     const int oi = __shfl_xor_sync(gm, i, o, G);
-    if (od < d || (od == d && oi < i)) {
+    if (argmin_before(od, oi, d, i)) {
       d = od;
       i = oi;
     }
@@ -229,7 +262,7 @@ __device__ __forceinline__ void group_argmin_v(float& d, int& i, float& v, unsig
     const float od = __shfl_xor_sync(gm, d, o, G);
     const int oi = __shfl_xor_sync(gm, i, o, G);
     const float ov = __shfl_xor_sync(gm, v, o, G);
-    if (od < d || (od == d && oi < i)) {
+    if (argmin_before(od, oi, d, i)) {
       d = od;
       i = oi;
       v = ov;
@@ -237,13 +270,35 @@ __device__ __forceinline__ void group_argmin_v(float& d, int& i, float& v, unsig
   }
 }
 
+// One step of a serial first minimum in torch.argmin's order: d replaces
+// best where it is smaller or NaN; returns true at a NaN, which nothing after
+// it replaces (the scan may stop there)
+__device__ __forceinline__ bool first_min_step(float d, int j, float& best, int& bi) {
+  if (!(d >= best)) {
+    best = d;
+    bi = j;
+    return d != d;
+  }
+  return false;
+}
+
 // first-minimum node of (px, py) among nodes j0, j0 + step, ... < NP of the
-// lane's target path (node j at sx[j], sy[j])
+// lane's target path (node j at sx[j], sy[j]); (inf, 0) when every distance
+// is +inf, as torch.argmin gives index 0 there. The path is finite, so a
+// distance is NaN only for a NaN query: the NaN-aware scan runs only then,
+// the plain strict scan otherwise.
 __device__ __forceinline__ void match_part(const float* sx, const float* sy, int NP, int j0,
                                            int step, float px, float py, float& best,
                                            int& bi) {
   best = INFINITY;
   bi = 0;
+  if (px != px || py != py) {
+    for (int j = j0; j < NP; j += step) {
+      const float dx = sx[j] - px, dy = sy[j] - py;
+      if (first_min_step(dx * dx + dy * dy, j, best, bi)) break;
+    }
+    return;
+  }
   for (int j = j0; j < NP; j += step) {
     const float dx = sx[j] - px, dy = sy[j] - py;
     const float d = dx * dx + dy * dy;
@@ -398,11 +453,12 @@ __device__ float npc_stop_distance(const float* F, const float* tl, int L, float
   float d = INFINITY;
   for (int l = 0; l < L; ++l) {
     const float per = tl[2 * L + l];
-    const float phase = floored_mod(t_abs + tl[3 * L + l], fmaxf(per, 1e-3f));
+    const float phase = floored_mod(t_abs + tl[3 * L + l], max_nan(per, 1e-3f));
     const bool red = tl[5 * L + l] > 0.5f && !(phase < tl[4 * L + l] * per);
     const float dxl = tl[l] - xk, dyl = tl[L + l] - yk;
     const float dl = dxl * ux + dyl * uy;
     const float dlat = -dxl * uy + dyl * ux;
+    // dl > 0: no NaN reaches the min
     if (red && dl > 0.f && fabsf(dlat) < F[F_STOP_LAT]) d = fminf(d, dl);
   }
   return d;
@@ -503,6 +559,7 @@ __device__ __forceinline__ void agent_step(const float* F, int K, int NG, const 
     const bool own_free = !group_any(occ_o, gm);
     if (L > 0) {
       const float d_light = npc_stop_distance(F, tl, L, t_abs, xk, yk, ck, sk, spk);
+      // both a number or +inf (gaps and stop lines passed ordered tests)
       v_tgt = d_light < gap_tgt ? 0.f : v_tgt;
       gap_tgt = fminf(gap_tgt, d_light);
     }
@@ -521,16 +578,26 @@ __device__ __forceinline__ void agent_step(const float* F, int K, int NG, const 
     const int hi = min(lo + AGENT_ROWS, NG);
     float best = INFINITY;
     int idx2 = 0;
+    bool any_nan = false;
     for (int r = lo + g; r < hi; r += G) {
       const float dx = gx[r] - xk, dy = gy[r] - yk;
       const float d = dx * dx + dy * dy;
+      any_nan = any_nan || d != d;
       if (d < best) {
         best = d;
         idx2 = r;
       }
     }
+    if (any_nan) {  // torch.argmin's first NaN, which nothing after it replaces
+      for (int r = lo + g; r < hi; r += G) {
+        const float dx = gx[r] - xk, dy = gy[r] - yk;
+        if (first_min_step(dx * dx + dy * dy, r, best, idx2)) break;
+      }
+    }
     group_argmin(best, idx2, gm);
-    const int look = min(max(idx2 + 2 + (int)(spk * 0.25f), 0), NG - 1);
+    // a NaN speed looks 2 rows ahead (the conversion of NaN on the card gives
+    // 0); it reaches no output, whose position is NaN then
+    const int look = min(max(idx2 + 2 + (spk == spk ? (int)(spk * 0.25f) : 0), 0), NG - 1);
     float s_l, c_l;
     sincosf(gth[look], &s_l, &c_l);
     const float dxp = (gx[look] - off * s_l) - xk;
@@ -755,7 +822,7 @@ __global__ void __launch_bounds__(THREADS, 1) tick_kernel(TickArgs a) {
     const float vyw = vy * cphi + vx * sphi;
     const float spd_w = hypot_j(vxw, vyw);
     const bool slow = spd_w < 0.5f;
-    const float den = slow ? 1.f : fmaxf(spd_w, 1e-3f);
+    const float den = slow ? 1.f : max_nan(spd_w, 1e-3f);
     const float ux = slow ? cphi : vxw / den;
     const float uy = slow ? sphi : vyw / den;
     float d_lead = INFINITY;
@@ -767,6 +834,7 @@ __global__ void __launch_bounds__(THREADS, 1) tick_kernel(TickArgs a) {
       if (s.valid[q] && d_long > 0.f && fabsf(d_lat) < 2.f) d_lead = fminf(d_lead, d_long);
     }
     d_lead = group_fmin(d_lead, gm);
+    // d_lead is a number or +inf, and so is v_cap
     float v_cap = fmaxf((d_lead - F[F_STANDOFF]) / F[F_HEADWAY], 0.f);
     if (L > 0) {
       // red-light cap: nearest red stop line ahead in the same corridor
@@ -774,7 +842,7 @@ __global__ void __launch_bounds__(THREADS, 1) tick_kernel(TickArgs a) {
       float d_stop = INFINITY;
       for (int l = 0; l < L; ++l) {
         const float per = tl[2 * L + l];
-        const float phase = floored_mod(t_abs + tl[3 * L + l], fmaxf(per, 1e-3f));
+        const float phase = floored_mod(t_abs + tl[3 * L + l], max_nan(per, 1e-3f));
         const bool red = tl[5 * L + l] > 0.5f && !(phase < tl[4 * L + l] * per);
         const float dxl = tl[l] - x, dyl = tl[L + l] - y;
         const float dl_long = dxl * ux + dyl * uy;
@@ -782,15 +850,17 @@ __global__ void __launch_bounds__(THREADS, 1) tick_kernel(TickArgs a) {
         if (red && dl_long > 0.f && fabsf(dl_lat) < F[F_STOP_LAT])
           d_stop = fminf(d_stop, dl_long);
       }
+      // d_stop and both caps are numbers or +inf
       v_cap = fminf(v_cap,
                     fmaxf((d_stop - F[F_STOP_STANDOFF]) / F[F_STOP_HEADWAY], 0.f));
     }
+    // plan_speed is finite (a finite plan) and v_cap a number or +inf
     const float tick_kmh = 3.6f * fminf(plan_speed, v_cap);
 
     // lateral control: table lerp weights, predicted-pose tracking error
-    const float vxs = vx < 0.f ? fminf(vx, -F[F_MIN_VX]) : fmaxf(vx, F[F_MIN_VX]);
+    const float vxs = vx < 0.f ? fminf(vx, -F[F_MIN_VX]) : max_nan(vx, F[F_MIN_VX]);
     const float pos = clip((vxs - F[F_TAB_V0]) / F[F_TAB_DV], 0.f, (float)(a.n_tab - 1));
-    const int ii = max(0, min((int)pos, a.n_tab - 2));
+    const int ii = pos == pos ? max(0, min((int)pos, a.n_tab - 2)) : 0;
     const float wf = pos - (float)ii;
     const float ts = F[F_TS];
     const float xp = x + (vxs * cphi - vy * sphi) * ts;
@@ -900,7 +970,7 @@ __global__ void __launch_bounds__(THREADS, 1) tick_kernel(TickArgs a) {
         ay = accel * sn;
         vx = vxn;
       } else {
-        const float v = fmaxf(vx + accel * dts, 0.f);
+        const float v = max_nan(vx + accel * dts, 0.f);
         omega = v * tanf(delta) / F[F_AB];
         phi = phi + omega * dts;
         float cph, sph;

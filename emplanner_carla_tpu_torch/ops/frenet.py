@@ -83,9 +83,15 @@ def _sq_dist(px: Tensor, py: Tensor, path: Path) -> Tensor:
     return dx * dx + dy * dy
 
 
-def nearest_index(px: Tensor, py: Tensor, path: Path) -> Tensor:
-    """Index of the nearest path node, int32, first minimum on ties."""
-    return torch.argmin(_sq_dist(px, py, path), dim=-1).to(torch.int32)
+def nearest_index(px: Tensor, py: Tensor, path: Path,
+                  valid: Tensor | None = None) -> Tensor:
+    """Index of the nearest path node, int32, first minimum on ties.
+    ``valid`` (B, N) bool, like a path channel, masks the nodes that may
+    match (a masked node's distance is +inf)."""
+    d2 = _sq_dist(px, py, path)
+    if valid is not None:
+        d2 = torch.where(_rows(valid, px), d2, float("inf"))
+    return torch.argmin(d2, dim=-1).to(torch.int32)
 
 
 def nearest_index_windowed(

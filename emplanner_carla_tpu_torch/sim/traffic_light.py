@@ -69,7 +69,10 @@ def stop_distance(ego: EgoState, lights: TrafficLights, t: Tensor) -> Tensor:
     return torch.where(gating, d_long, float("inf")).min(dim=1).values
 
 
-def red_light_cap(ego: EgoState, lights: TrafficLights, t: Tensor) -> Tensor:
-    """(B,) speed cap (m/s) to stop at the nearest red light ahead."""
-    d = stop_distance(ego, lights, t) - STOP_STANDOFF
-    return torch.clamp(d / torch.full_like(d, STOP_HEADWAY), min=0.0)
+def red_light_cap(ego: EgoState, lights: TrafficLights, t: Tensor,
+                  standoff: float = STOP_STANDOFF,
+                  headway: float = STOP_HEADWAY) -> Tensor:
+    """(B,) speed cap (m/s) to stop ``standoff`` metres short of the nearest
+    red light ahead at a time headway of ``headway`` seconds."""
+    d = stop_distance(ego, lights, t) - standoff
+    return torch.clamp(d / torch.full_like(d, headway), min=0.0)

@@ -126,6 +126,39 @@ def test_k1_nan_lane_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k1_speed_site_nan_lane_on_card(cuda_device):
+    """At the speed site (n 51, m 99), a NaN in one lane's q and a NaN in
+    another lane's carried z: those lanes' x come out all NaN from the
+    kernel, as from the plain version, and the other lanes are as without
+    them."""
+    B = 100
+    sp = CFG.speed
+    seg, v0 = _random_segments(B, 2, cuda_device, seed=4)
+    dp = speed_planner._speed_dp_torch(seg, v0, sp)
+    path_s = torch.arange(96, device=cuda_device, dtype=torch.float32)[None].expand(B, 96) * 2.0
+    bounds = speed_planner.convex_space(dp, seg, path_s, torch.full((B, 96), 0.01,
+                                                                     device=cuda_device), sp)
+    q, l, u = speed_planner.speed_qp_problem(v0, torch.zeros(B, device=cuda_device),
+                                             *bounds, sp)
+    solver = speed_planner._speed_solver(sp)
+    state = speed_planner.warm_state_init(sp, B, cuda_device)
+    q_nan = q.clone()
+    q_nan[3, 5] = float("nan")
+    z_nan = state[1].clone()
+    z_nan[40, 7] = float("nan")
+    state_nan = (state[0], z_nan, state[2])
+    x_k = t_qp.warm_admm_kernel(solver, q, l, u, state)[0]
+    x_kn = t_qp.warm_admm_kernel(solver, q_nan, l, u, state_nan)[0]
+    x_pn = t_qp.warm_ladder_torch(solver, q_nan, l, u, state_nan)[0]
+    torch.cuda.synchronize()
+    for lane in (3, 40):
+        assert bool(torch.isnan(x_pn[lane]).all()), lane
+        assert bool(torch.isnan(x_kn[lane]).all()), lane
+    others = (torch.arange(B, device=cuda_device) != 3) & (torch.arange(B, device=cuda_device) != 40)
+    assert torch.equal(x_kn[others], x_k[others])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 33])
 @pytest.mark.parametrize("site", ["path", "speed"])
 def test_k1c_tile_edges_on_card(cuda_device, site, B):
@@ -174,6 +207,36 @@ def test_k2_kernel_equals_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     assert bool((a >= CFG.path.w_collision).any())
     assert torch.equal(a, b)  # bit for bit
+
+
+@pytest.mark.cuda
+def test_k2_nan_obstacle_on_a_valid_slot_on_card(cuda_device):
+    """Valid slots whose station or lateral offset is NaN or infinite (a
+    poisoned reading that reaches the DP): kernel and plain version agree
+    bit for bit, and such a slot costs nothing, as if it were invalid."""
+    rng = np.random.default_rng(2)
+    B, K = 300, 8
+    ps = rng.uniform(-5, 5, B)
+    obs_s = ps[:, None] + rng.uniform(-10, 60, (B, K))
+    obs_l = rng.choice([-1.5, 0.0, 0.3, 1.5], (B, K)) + rng.normal(size=(B, K)) * 0.5
+    valid = np.ones((B, K), bool)
+    bad = np.zeros((B, K), bool)
+    obs_s[::3, 0] = np.nan
+    obs_l[1::3, 1] = np.nan
+    obs_l[2::3, 2] = np.inf
+    obs_s[2::6, 3] = -np.inf
+    bad[::3, 0] = bad[1::3, 1] = bad[2::3, 2] = bad[2::6, 3] = True
+    dev = cuda_device
+    args = (t32(obs_s, dev), t32(obs_l, dev), torch.as_tensor(valid, device=dev), t32(ps, dev))
+    a = path_dp.transition_obstacle_costs(*args, CFG.path)
+    b = path_dp._transition_obstacle_costs_torch(*args, CFG.path)
+    masked = path_dp.transition_obstacle_costs(
+        t32(np.where(bad, 0.0, obs_s), dev), t32(np.where(bad, 0.0, obs_l), dev),
+        torch.as_tensor(valid & ~bad, device=dev), t32(ps, dev), CFG.path)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and bool((a >= CFG.path.w_collision).any())
+    assert torch.equal(a, b)  # bit for bit
+    assert torch.equal(a, masked)
 
 
 @pytest.mark.cuda
@@ -380,6 +443,25 @@ def test_k4_nan_and_inf_lanes_on_card(cuda_device):
     seg.s_out[7::8, 0] = seg.s_in[7::8, 0]
     seg.t_out[7::8, 0] = seg.t_in[7::8, 0]
     seg.valid[3::8, 0] = seg.valid[5::8, 1] = seg.valid[7::8, 0] = True
+    out_k = speed_planner.speed_dp(seg, v0, CFG.speed)
+    out_p = speed_planner._speed_dp_torch(seg, v0, CFG.speed)
+    torch.cuda.synchronize()
+    _assert_dp_equal(out_k, out_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 4])
+def test_k4_nan_segment_times_on_card(cuda_device, K):
+    """Valid segments whose entry or exit time is NaN (the pure-time gap of
+    the live mask is then NaN, torch.maximum's, and the segment is live in
+    no column) or whose station is NaN: kernel and plain version agree bit
+    for bit, on the fixed instantiation (K 2) and the generic one (K 4)."""
+    seg, v0 = _random_segments(96, K, cuda_device, seed=9)
+    seg = STSegments(*(a.clone() for a in seg))
+    seg.t_in[::4, 0] = float("nan")
+    seg.t_out[1::4, 1] = float("nan")
+    seg.s_out[2::4, 0] = float("nan")
+    seg.valid[::4, 0] = seg.valid[1::4, 1] = seg.valid[2::4, 0] = True
     out_k = speed_planner.speed_dp(seg, v0, CFG.speed)
     out_p = speed_planner._speed_dp_torch(seg, v0, CFG.speed)
     torch.cuda.synchronize()
@@ -840,6 +922,164 @@ def test_tick_kernel_pid_window_and_derivative_on_card(cuda_device, kind):
     assert torch.equal(out_k[2], out_p[2])
     np.testing.assert_allclose(np_of(out_k[1]), np_of(out_p[1]), atol=5e-3)
     assert not torch.equal(out_k[6][2], out_0[6][2])
+
+
+# (kind, cfg, lights) of each tick instantiation: K3, K3-L, K5 + K6, K5, K6,
+# K7 with LQR, with lights and under MPC + the dynamic bicycle
+NAN_TICK_CASES = {
+    "tick_lqr": ("ticks", CFG, False),
+    "tick_lqr_lights": ("ticks", CFG, True),
+    "tick_mpc_dynamic": ("ticks", CONFIG4, False),
+    "tick_mpc_kinematic": ("ticks", TICK_VARIANTS["mpc_kinematic"], False),
+    "tick_lqr_dynamic": ("ticks", TICK_VARIANTS["lqr_dynamic"], False),
+    "tick_traffic": ("traffic", CFG, False),
+    "tick_traffic_lights": ("traffic", CFG, True),
+    "tick_traffic_mpc_dynamic": ("traffic", CONFIG4, False),
+}
+# poisoned lanes: ego vx NaN, heading NaN, vx +inf, x +inf; the lead's x
+# NaN, the lead's and a parked car's y +inf; a NaN light period. The plan
+# (target path, speed profile, times) stays finite: the kernel requires it,
+# and every entry point sanitises it (test_torch_containment.py's
+# test_tick_loops_get_a_finite_plan_on_poisoned_lanes)
+NAN_LANES = (5, 6, 7, 8, 10, 11, 16)
+
+
+def _poisoned(args, kw):
+    """A copy of one tick-loop cycle's (args, kw) with :data:`NAN_LANES`
+    poisoned."""
+    args, kw = list(args), dict(kw)
+    nan, inf = float("nan"), float("inf")
+    ego = [a.clone() for a in args[0]]
+    ego[3][5] = nan
+    ego[2][6] = nan
+    ego[3][7] = inf
+    ego[0][8] = inf
+    args[0] = type(args[0])(*ego)
+    obs = args[4]
+    x, y = obs.x.clone(), obs.y.clone()
+    d0 = CFG.n_static_obs                # the lead NPC's slot, valid (an agent in K7)
+    x[10, d0] = nan
+    y[11, d0] = inf
+    y[11, 0] = inf                       # a parked car's
+    args[4] = obs._replace(x=x, y=y)
+    if "lights" in kw:
+        period = kw["lights"].period.clone()
+        period[16, 0] = nan
+        kw["lights"] = kw["lights"]._replace(period=period)
+    return tuple(args), kw
+
+
+def nan_case(name, device):
+    """(wrapper, plain loop, args, kw, poisoned args, poisoned kw) of
+    NAN_TICK_CASES[name]: one cycle's tick-loop inputs (``_tick_case``), with
+    its traffic lights, and their copy with :data:`NAN_LANES` poisoned."""
+    kind, cfg, with_lights = NAN_TICK_CASES[name]
+    run, plain, args, kw = _tick_case(kind, device, cfg)
+    B = args[0].x.shape[0]
+    if with_lights:
+        path = kw["traffic"].global_path if kind == "traffic" else args[7]
+        kw["lights"] = scenario.lights_on_path(
+            path, (11.0, 41.0), period=12.0, green_frac=0.5,
+            offsets=torch.linspace(0.0, 12.0, B + 1, device=device)[:B, None].expand(B, 2),
+            device=device)
+        kw["t0"] = torch.full((B,), 2.0, device=device)
+    return (run, plain, args, kw, *_poisoned(args, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(NAN_TICK_CASES))
+def test_tick_kernel_nan_and_inf_lanes_on_card(cuda_device, name):
+    """Every tick instantiation on a batch with poisoned lanes
+    (:data:`NAN_LANES`) against its plain loop: NaN and inf at the same
+    places of every output, the decisions and the PID counts identical, the
+    numbers at the loop's kernel-vs-scan bar; the healthy lanes bit for bit
+    as in the same launch without the poisoned ones."""
+    kind = NAN_TICK_CASES[name][0]
+    run, plain, args, kw, p_args, p_kw = nan_case(name, cuda_device)
+    B = args[0].x.shape[0]
+    before = closed_loop.launches[name]
+    out_k = run(*p_args, **p_kw)
+    assert closed_loop.launches[name] == before + 1
+    out_p = plain(*p_args, **p_kw)
+    clean = run(*args, **kw)
+    torch.cuda.synchronize()
+    outs_k, outs_p, outs_c = (list(tensors_of(o)) for o in (out_k, out_p, clean))
+    assert len(outs_k) == len(outs_p) == len(outs_c)
+    for i, (a, b) in enumerate(zip(outs_k, outs_p)):
+        if a.dtype.is_floating_point:
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), f"output {i}: NaN places"
+            assert torch.equal(torch.isinf(a) & (a > 0), torch.isinf(b) & (b > 0)), i
+            assert torch.equal(torch.isinf(a) & (a < 0), torch.isinf(b) & (b < 0)), i
+        else:
+            assert torch.equal(a, b), f"output {i}"
+    (assert_tick_bar if kind == "ticks" else assert_traffic_bar)(out_k, out_p)
+    healthy = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    healthy[list(NAN_LANES)] = False
+    for a, c in zip(outs_k, outs_c):
+        assert torch.equal(a[healthy], c[healthy])
+    # the poison reached the state: the NaN-speed lane's position is NaN and
+    # the NaN-heading lane's too; the healthy lanes stay finite
+    ego = out_k[0]
+    assert bool(torch.isnan(ego.x[5])) and bool(torch.isnan(ego.x[6]))
+    assert bool(torch.isfinite(ego.x[healthy]).all())
+
+
+_HYPOT_SRC = r"""
+#include "{src}"
+__global__ void hyp(const float* a, const float* b, float* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = hypot_j(a[i], b[i]);
+}
+extern "C" int hypots(const float* a, const float* b, float* out, int n) {
+  hyp<<<(n + 255) / 256, 256>>>(a, b, out, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_hypot_j_equals_types_hypot_on_card(cuda_device, tmp_path):
+    """The tick kernel's hypot_j (built from csrc/tick_lqr.cu with its
+    flags) against ``types.hypot`` on the card, over every pair of NaN,
+    +-inf, +-0, subnormal, normal and near-overflow values and over random
+    pairs around its min <= max * 2^-13 shortcut: the same bits, NaN at the
+    same places. Against ``types.hypot`` on the CPU: NaN and inf at the same
+    places, the numbers within an ulp (the CPU's vectorised square root is
+    not always correctly rounded)."""
+    import ctypes
+    import subprocess
+
+    from emplanner_carla_tpu_torch import cuda as kbuild
+    from emplanner_carla_tpu_torch.types import hypot
+
+    vals = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 1e-40, 1.1754944e-38,
+                     1e-20, 1e-4, 0.5, 1.0, -2.5, 3.0, 8192.0, 1e10, 1.8e19, 3e38, -3.4e38],
+                     np.float32)
+    a, b = (g.ravel() for g in np.meshgrid(vals, vals))
+    rng = np.random.default_rng(17)
+    hi = rng.uniform(0.1, 100.0, 20000).astype(np.float32)
+    lo = (hi * 2.0 ** -13 * rng.uniform(0.99, 1.01, 20000)).astype(np.float32)
+    flip = rng.uniform(size=20000) < 0.5
+    a = np.concatenate([a, np.where(flip, hi, lo), rng.normal(size=5000).astype(np.float32)])
+    b = np.concatenate([b, np.where(flip, lo, hi), rng.normal(size=5000).astype(np.float32)])
+    src, lib = tmp_path / "hypot.cu", tmp_path / "libhypot.so"
+    src.write_text(_HYPOT_SRC.replace("{src}", str(kbuild.CSRC / "tick_lqr.cu")))
+    subprocess.run([kbuild._nvcc(), *kbuild._BASE_FLAGS, *kbuild.SOURCES["tick_lqr"][1],
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).hypots
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    ta, tb = t32(a, cuda_device), t32(b, cuda_device)
+    out = torch.empty_like(ta)
+    assert fn(ta.data_ptr(), tb.data_ptr(), out.data_ptr(), a.size) == 0
+    got = np_of(out)
+    want, cpu = np_of(hypot(ta, tb)), np_of(hypot(t32(a), t32(b)))
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    num = ~np.isnan(got)
+    assert np.array_equal(got[num].view(np.uint32), want[num].view(np.uint32))
+    assert np.array_equal(np.isnan(got), np.isnan(cpu))
+    assert np.array_equal(np.isinf(got), np.isinf(cpu))
+    np.testing.assert_allclose(got[num], cpu[num], rtol=2.4e-7, atol=0)
+    assert np.isnan(got).any() and np.isinf(got).any()
 
 
 _SINCOS_SRC = r"""

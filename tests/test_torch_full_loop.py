@@ -112,6 +112,32 @@ def test_k3l_plain_matches_jax_tick_loop():
     assert slower.any() and not slower.all()
 
 
+
+@pytest.mark.parametrize("standoff,headway", [(2.5, 0.8), (6.0, 2.0)])
+def test_red_light_cap_standoff_headway_matches_jax(standoff, headway):
+    """``red_light_cap(..., standoff=, headway=)`` at non-default values,
+    on red, green and switching lanes, moving and at rest (the heading
+    fallback of the stop corridor)."""
+    from emplanner_carla_tpu.sim import traffic_light as j_tl
+    from emplanner_carla_tpu_torch.sim import traffic_light as t_tl
+
+    sc = _bench_mix()
+    lights = _jax_lights(sc.global_path, 8)
+    ego = sc.ego0._replace(vx=sc.ego0.vx.at[::3].set(0.0))
+    t = np.linspace(0.0, 11.0, 8).astype(np.float32)
+    want = jax.vmap(lambda e, tl, ti: j_tl.red_light_cap(e, tl, ti, standoff, headway))(
+        ego, lights, t)
+    got = t_tl.red_light_cap(convert.ego_from_numpy(ego),
+                             convert.lights_from_numpy(lights), t32(t),
+                             standoff=standoff, headway=headway)
+    np.testing.assert_allclose(np_of(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+    default = t_tl.red_light_cap(convert.ego_from_numpy(ego),
+                                 convert.lights_from_numpy(lights), t32(t))
+    finite = np.isfinite(np_of(got))
+    assert finite.any() and (~finite).any()          # some red ahead, some not
+    assert not np.array_equal(np_of(got)[finite], np_of(default)[finite])
+
+
 @pytest.fixture(scope="module")
 def full_cycles():
     """One JAX full EM cycle from the zero warm state on each batch."""

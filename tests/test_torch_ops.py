@@ -163,6 +163,34 @@ def test_frenet_round_trip_matches_jax(rng):
             a, b, p, c, 16))(px[:, 0], py[:, 0], jp, center)))
 
 
+
+def test_nearest_index_valid_mask_matches_jax(rng):
+    """``nearest_index(..., valid=)`` at a non-default mask: masked nodes
+    never match, and a query whose every node is masked gives index 0 in
+    both packages."""
+    jp, tp = _curvy_path(rng)
+    B, N = np.asarray(jp.x).shape
+    px = np.asarray(jp.x)[:, 20:26] + rng.normal(size=(B, 6)).astype(np.float32)
+    py = np.asarray(jp.y)[:, 20:26] + rng.normal(size=(B, 6)).astype(np.float32)
+    valid = rng.uniform(size=(B, N)) < 0.6
+    valid[:, 18:28] = False              # the unmasked nearest nodes are out
+    valid[1] = False                     # every node masked
+    valid[2, ::2] = False
+    # lane 3's query midway between two valid nodes around a masked one
+    px[3, 0] = 0.5 * (float(jp.x[3, 31]) + float(jp.x[3, 33]))
+    py[3, 0] = 0.5 * (float(jp.y[3, 31]) + float(jp.y[3, 33]))
+    valid[3, 29:36] = [False, False, True, False, True, False, False]
+    want = jax.vmap(lambda a, b, p, v: j_frenet.nearest_index(a, b, p, v))(
+        px, py, jp, valid[:, None, :])
+    got = t_frenet.nearest_index(t32(px), t32(py), tp, torch.as_tensor(valid))
+    np.testing.assert_array_equal(np_of(got), np.asarray(want))
+    assert np.all(valid[np.arange(B)[:, None], np_of(got)] | (np.arange(B) == 1)[:, None])
+    # (B,) queries against the same mask
+    want1 = jax.vmap(j_frenet.nearest_index)(px[:, 0], py[:, 0], jp, valid)
+    got1 = t_frenet.nearest_index(t32(px[:, 0]), t32(py[:, 0]), tp, torch.as_tensor(valid))
+    np.testing.assert_array_equal(np_of(got1), np.asarray(want1))
+
+
 # ---------------- K1: the warm ADMM ladder ----------------
 
 def _qp_problem(seed, B=8, warm_state=True):
